@@ -13,17 +13,28 @@ or without the repository beside it. Phases (any failure stops the run):
    and spills;
 2. the repo's bench frame (100k gaussians, 800x608, ``bench.py``): each
    kernel against its plain PyTorch version (B4 keys exactly equal, B1 within
-   1e-5 at early_stop_eps 0 and at the default, labels equal), the instance
-   counts against the JAX binning's, and a small render on the card against
-   the same render on the CPU;
-3. the main path at real size: a 2M-gaussian scene written to PLY, loaded
+   1e-5 at early_stop_eps 0 and at the default, labels equal; B2 within 1e-4
+   of each column's peak, zero rows equal), the instance counts against the
+   JAX binning's, a small render on the card against the same render on the
+   CPU, and the gradients of all five scene tensors on the card against the
+   CPU's (within 1e-3 of each tensor's peak);
+3. the serving path at real size: a 2M-gaussian scene written to PLY, loaded
    back through ``scene_from_ply`` and rendered with labels from 8 orbit
    views at 800x608 through ``render``; outputs finite and covered, nothing
-   dropped, each kernel launched once per frame; then each kernel against its
-   plain version on one of those frames;
-4. times on the card (CUDA events, median of 10 after warm-up) of
-   projection, B4, the sort, B1 and the whole render at both frames, the plain
-   versions' times, and peak device memory.
+   dropped, B4 and B1 launched once per frame; then B4, B1 and B2 against
+   their plain versions on one of those frames, and B3 against a float64
+   prefix sum on that frame's gradient fold (within 1e-6 of each column's
+   peak prefix);
+4. the training path at real size: 10 steps of
+   ``make_adaptive_multiview_train_step`` over 4 views of the 2M scene,
+   perturbed, padded to 1.25x capacity, with one ``densify_and_prune`` and
+   ``zero_adam_rows`` after step 5; loss falls, parameters finite, nothing
+   dropped, B4, B1, B2 and B3 launched once per view per step; then one
+   single-view ``make_train_step`` step timed and split into its stages;
+5. times on the card (CUDA events, median of 10 after warm-up) of
+   projection, B4, the sort, B1, B2, B3, ``torch.cumsum`` and the whole
+   render at both frames, the plain versions' times, bounds, and peak
+   device memory.
 
 The second-to-last line of stdout is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``.
@@ -46,8 +57,11 @@ from gsplat_tpu_torch.config import DEFAULT, UNLABELED
 from gsplat_tpu_torch.io.cameras import look_at_camera, orbit_cameras
 from gsplat_tpu_torch.io.ply import scene_from_ply, scene_to_ply
 from gsplat_tpu_torch.io.synthetic import random_scene
+from gsplat_tpu_torch.models import densify, trainer
 from gsplat_tpu_torch.render import blend, tiles
-from gsplat_tpu_torch.render.api import pack_table, render
+from gsplat_tpu_torch.render.api import (_render_impl, enumeration_rows,
+                                         fold_instance_rows, pack_table,
+                                         render, segment_sums)
 from gsplat_tpu_torch.render.projection import (CameraParams, project,
                                                 tile_grid)
 
@@ -71,6 +85,12 @@ B1_OPS_PER_LIVE = 10
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction table);
 # expf issues one of them
 SFU_PER_CLOCK_PER_SM = 16
+# f32 operations per live (instance, pixel) pair of B2, counted from
+# csrc/blend_bwd.cu past what B1 counts: the weight (1), c.dC (5), the
+# contribution and prefix (2), the suffix (1), 1 - alpha and the ratio (2),
+# dq with its clamp test (4), the dq.dx / dq.dy products (2), the six moment
+# sums (9), the colour sums (6) and the T update (1)
+B2_OPS_PER_LIVE = 33
 # f32 operations per bbox slot of B4: the rectangle test (4 edge minima of
 # 11 operations, 4 offsets, 4 compares, 2 floors, 3 minima) plus the tile
 # origin and the cut (5)
@@ -78,6 +98,25 @@ B4_OPS_PER_SLOT = 62
 
 CFG = DEFAULT
 RC = CFG.raster
+
+# Phase 4, the training path. The schedule is the TRAIN_r05.json recipe's
+# (make_adaptive_multiview_train_step, l2, lr_final = lr / 20, decay over
+# the run) with lr scaled to this scene: the recipe's 0.007 was set for
+# gaussians of scale 0.03-0.08, these are 0.002-0.008, and Adam's first
+# update moves every visible mean by about lr, so 0.007 would throw the
+# means 1-3 sigma off their targets. The rate is scaled with the gaussians'
+# size, 10x smaller.
+TRAIN_VIEWS = 4
+TRAIN_STEPS = 10
+TRAIN_LR = 0.0007
+DENSIFY_AFTER = 5
+# densify after step 5 writes at most 1% of the capacity, and its gradient
+# threshold is set from the run's statistics so that no more gaussians are
+# candidates than that: with more candidates than new slots, the densify
+# step (as the JAX package's) still shrinks every split candidate, also
+# those that get no child, and that shrinks most of the scene at once
+DENSIFY_NEW_FRACTION = 0.01
+SCENE_EXTENT = 1.5
 
 
 def log(obj) -> None:
@@ -136,6 +175,8 @@ class Frame:
         self.ptab = pack_table(self.proj, scene.labels)
         self.counts = (self.binning.tile_bounds[1:]
                        - self.binning.tile_bounds[:-1])
+        self._work = {}
+        self._bwd_args = {}
 
     def project(self):
         return project(self.scene, self.camp, self.cam.width,
@@ -191,6 +232,13 @@ class Frame:
         return bound(nbytes, ops)
 
     def b1_work(self, eps):
+        """(evaluated, live) instance-pixel pairs of B1 (and B2, which walks
+        the same batches) under early stop ``eps``; computed once per eps."""
+        if eps not in self._work:
+            self._work[eps] = self._b1_work(eps)
+        return self._work[eps]
+
+    def _b1_work(self, eps):
         """(evaluated, live) instance-pixel pairs of B1 under early stop
         ``eps``: replays the kernel's tile-wide stop rule (a batch runs only
         while the tile's max T >= eps) on T alone, step by step as the plain
@@ -242,6 +290,61 @@ class Frame:
         ops = evals * B1_OPS_PER_EVAL + live * B1_OPS_PER_LIVE
         t_sfu = evals / sfu_per_s * 1e3   # one exp per evaluated pair
         return bound(nbytes, ops, t_sfu), evals, live, t_sfu
+
+
+    def bwd_args(self, eps=RC.early_stop_eps):
+        """B2's inputs at early stop ``eps``: the stream, B1's (rgb, T)
+        without labels, and a seeded random cotangent."""
+        if eps not in self._bwd_args:
+            kw = self._blend_kw(eps)
+            kw["with_labels"] = False
+            out = blend.blend_tiles_fwd(self.ptab, self.binning.inst_gauss,
+                                        self.binning.tile_bounds, **kw)
+            gen = torch.Generator(device=self.ptab.device).manual_seed(11)
+            h, w = self.cam.height, self.cam.width
+            self._bwd_args[eps] = (
+                self.ptab, self.binning.inst_gauss, self.binning.tile_bounds,
+                out.rgb, out.transmittance,
+                torch.randn(h, w, 3, generator=gen, device=self.ptab.device),
+                torch.randn(h, w, generator=gen, device=self.ptab.device))
+        return self._bwd_args[eps]
+
+    def _bwd_kw(self, eps):
+        kw = self._blend_kw(eps)
+        del kw["with_labels"]
+        return kw
+
+    def blend_bwd(self, eps=RC.early_stop_eps):
+        return blend.blend_tiles_bwd(*self.bwd_args(eps), **self._bwd_kw(eps))
+
+    def blend_bwd_plain(self, eps=RC.early_stop_eps):
+        return blend._blend_tiles_bwd_plain(*self.bwd_args(eps),
+                                            **self._bwd_kw(eps))
+
+    def fold_rows(self):
+        """The fold's input: B2's rows (default eps) in enumeration order."""
+        return enumeration_rows(self.blend_bwd(), self.binning.je_sorted)
+
+    def fold(self, drows):
+        return fold_instance_rows(drows, self.binning.je_sorted,
+                                  self.binning.enum_start,
+                                  self.binning.enum_cnt)
+
+    def b2_bound(self, sfu_per_s: float):
+        evals, live = self.b1_work(RC.early_stop_eps)
+        n = self.proj.u.shape[0]
+        b = self.binning.inst_gauss.numel()
+        # the [N, 16] table, indices, tile bounds, rgb/T and their
+        # cotangents read once; the [B, 16] rows written once
+        nbytes = (n * 16 * 4 + b * 4 + (self.num_tiles + 1) * 4
+                  + self.cam.width * self.cam.height * 8 * 4 + b * 16 * 4)
+        ops = evals * B1_OPS_PER_EVAL + live * B2_OPS_PER_LIVE
+        t_sfu = evals / sfu_per_s * 1e3
+        return bound(nbytes, ops, t_sfu), evals, live, t_sfu
+
+    def b3_bound(self):
+        b = self.binning.inst_gauss.numel()
+        return bound(2 * b * 16 * 4, b * 16)
 
 
 def bound(nbytes: int, ops: int, t_sfu: float = 0.0):
@@ -309,6 +412,229 @@ def check_small_render(device) -> None:
         raise AssertionError(f"card label map agrees on {lab} only")
 
 
+def check_b2(frame: Frame, tag: str) -> float:
+    """B2 against its plain version at eps 0 and the default: each column
+    within 1e-4 of its peak (the per-tile sums are associated differently),
+    the same zero rows. Returns the max abs error."""
+    worst = 0.0
+    for eps in (0.0, RC.early_stop_eps):
+        got = frame.blend_bwd(eps)
+        ref = frame.blend_bwd_plain(eps)
+        torch.cuda.synchronize()
+        diff = (got[:, :9] - ref[:, :9]).abs().amax(0)
+        rel = diff / ref[:, :9].abs().amax(0).clamp_min(1e-30)
+        zeros_equal = bool(torch.equal((got == 0).all(1), (ref == 0).all(1)))
+        log({"check": "B2 blend_tiles_bwd vs plain", "frame": tag,
+             "early_stop_eps": eps, "rows": got.shape[0],
+             "zero_rows": int((ref == 0).all(1).sum()),
+             "max_abs_err": float(diff.max()),
+             "max_err_over_column_peak": rel.tolist(),
+             "zero_rows_equal": zeros_equal})
+        if float(rel.max()) > 1e-4 or not zeros_equal or got[:, 9:].any():
+            raise AssertionError(f"B2 differs from its plain version at "
+                                 f"eps={eps}: {rel.tolist()}, zero rows "
+                                 f"equal {zeros_equal}")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def check_b3(frame: Frame, tag: str) -> float:
+    """B3 on the fold's real input against a float64 prefix sum: within
+    1e-6 of each column's peak |prefix|. Returns the max abs error."""
+    x = frame.fold_rows()
+    got = blend.cumsum_rows(x)
+    lib = torch.cumsum(x, 0)
+    want = torch.cumsum(x.double(), 0)
+    torch.cuda.synchronize()
+    peak = want[:, :9].abs().amax(0)
+    err = (got[:, :9].double() - want[:, :9]).abs().amax(0)
+    lib_err = (lib[:, :9].double() - want[:, :9]).abs().amax(0)
+    rel = (err / peak).tolist()
+    log({"check": "B3 cumsum_rows vs float64", "frame": tag,
+         "rows": x.shape[0], "max_abs_err": float(err.max()),
+         "max_err_over_column_peak": rel,
+         "torch_cumsum_f32_err_over_column_peak": (lib_err / peak).tolist()})
+    if max(rel) > 1e-6 or got[:, 9:].any():
+        raise AssertionError(f"B3 differs from float64 by {rel}")
+    return float(err.max())
+
+
+def check_gradients(device) -> None:
+    """Scene gradients through render on the card against the CPU's:
+    random 2000-gaussian scene, 128x96, l2 against a fixed target; each of
+    the five tensors within 1e-3 of its peak."""
+    scene = random_scene(2000, seed=21, num_labels=6, device="cpu")
+    cam = look_at_camera((0.2, -0.3, -3.0), (0, 0, 0), width=128, height=96)
+    target = torch.from_numpy(np.random.default_rng(2).uniform(
+        size=(96, 128, 3)).astype(np.float32))
+    grads = {}
+    for dev in (device, torch.device("cpu")):
+        s = scene.to(dev)
+        params = trainer.SceneParams.from_scene(s)
+        for p in params:
+            p.requires_grad_(True)
+        out = render(params.to_scene(s.labels), cam, CFG, device=dev)
+        loss = trainer.l2_loss(out["image"], target.to(dev))
+        grads[dev.type] = [g.cpu() for g in torch.autograd.grad(loss, params)]
+    errs = {}
+    for f, g_card, g_cpu in zip(trainer.SceneParams._fields, grads["cuda"],
+                                grads["cpu"]):
+        errs[f] = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
+        if not bool(torch.isfinite(g_card).all()):
+            raise AssertionError(f"card gradient of {f} is not finite")
+    log({"check": "scene gradients card vs CPU",
+         "scene": "random 2000, 128x96, l2", "max_err_over_peak": errs})
+    if max(errs.values()) > 1e-3:
+        raise AssertionError(f"card gradients differ from CPU: {errs}")
+
+
+def reset_launches() -> None:
+    for fn in (tiles.enum_keys, blend.blend_tiles_fwd, blend.blend_tiles_bwd,
+               blend.cumsum_rows):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {"enum_keys": tiles.enum_keys.launches,
+            "blend_tiles_fwd": blend.blend_tiles_fwd.launches,
+            "blend_tiles_bwd": blend.blend_tiles_bwd.launches,
+            "cumsum_rows": blend.cumsum_rows.launches}
+
+
+def train_main_path(scene, device):
+    """Phase 4: the adaptive multiview train steps at real size."""
+    cams = orbit_cameras(TRAIN_VIEWS, 3.0, width=WIDTH, img_height=HEIGHT)
+    with torch.no_grad():
+        targets = torch.stack([render(scene, c, CFG, device=device)["image"]
+                               for c in cams])
+    gen = torch.Generator(device=device).manual_seed(5)
+    n = scene.num_gaussians
+    p = trainer.SceneParams.from_scene(scene)
+    sh = p.sh.clone()
+    sh[:, 0] += 0.05 * torch.randn(n, 3, generator=gen, device=device)
+    p = p._replace(
+        means=p.means + 0.002 * torch.randn(n, 3, generator=gen,
+                                            device=device),
+        sh=sh, opacities=p.opacities - 0.5)
+    capacity = -(-int(1.25 * n) // 128) * 128
+    p, labels = densify.pad_to_capacity(p, scene.labels, capacity)
+    sched = dict(lr=TRAIN_LR, lr_final=TRAIN_LR / 20,
+                 decay_steps=TRAIN_STEPS)
+    step = trainer.make_adaptive_multiview_train_step(
+        (WIDTH, HEIGHT), CFG, loss="l2", **sched)
+    state = trainer.init_state(p.to_scene(labels), **sched)
+    stats = densify.DensifyStats.zeros(capacity, device=device)
+    camsb = trainer.stack_cameras([CameraParams.from_camera(c, device)
+                                   for c in cams])
+    bg = torch.zeros(3, device=device)
+    losses, dropped = [], 0
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        state, stats, loss, nd = step(state, stats, labels, camsb, targets,
+                                      bg)
+        losses.append(float(loss))
+        dropped = max(dropped, int(nd))
+        if i + 1 == DENSIFY_AFTER:
+            alive0 = int(densify.num_alive(state.params))
+            g_avg = stats.grad_accum / stats.count.clamp_min(1.0)
+            max_new = int(DENSIFY_NEW_FRACTION * capacity)
+            cfg = densify.DensifyConfig(
+                grad_threshold=float(torch.topk(g_avg, max_new).values[-1]),
+                max_new_fraction=DENSIFY_NEW_FRACTION)
+            new, labels, stats, written = densify.densify_and_prune(
+                state.params, labels, stats, gen, SCENE_EXTENT, cfg)
+            state = trainer.TrainState(
+                new, trainer.zero_adam_rows(state.opt_state, written),
+                state.step)
+            log({"phase": "densify", "after_step": i + 1,
+                 "alive_before": alive0,
+                 "alive_after": int(densify.num_alive(state.params)),
+                 "rewritten_slots": int(written.sum()),
+                 "grad_threshold": cfg.grad_threshold,
+                 "hot": int((g_avg > cfg.grad_threshold).sum()),
+                 "capacity": capacity})
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        final = sum(float(trainer.l2_loss(
+            _render_impl(state.params.to_scene(labels),
+                         CameraParams.from_camera(cam, device), bg,
+                         width=WIDTH, height=HEIGHT, cfg=CFG,
+                         with_labels=False)["image"], target))
+                    for cam, target in zip(cams, targets)) / TRAIN_VIEWS
+    finite = all(bool(torch.isfinite(t).all()) for t in state.params)
+    log({"phase": "train main path", "gaussians": n, "capacity": capacity,
+         "views": TRAIN_VIEWS, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+         "losses": losses, "loss_after_last_step": final,
+         "num_dropped": dropped, "finite": finite, "launches": launches,
+         "wall_s": wall, "ms_per_step": wall / TRAIN_STEPS * 1e3})
+    want = TRAIN_STEPS * TRAIN_VIEWS
+    for name, count in launches.items():
+        if count != want:
+            raise AssertionError(f"{name} launched {count} times in "
+                                 f"{TRAIN_STEPS} steps of {TRAIN_VIEWS} "
+                                 "views")
+    if not (finite and dropped == 0 and final < losses[0]):
+        raise AssertionError(f"training went wrong: loss {losses[0]} -> "
+                             f"{final}, finite {finite}, dropped {dropped}")
+    return launches, state, labels, cams, targets
+
+
+def time_train_step(state, labels, cam, target, device, card):
+    """One single-view make_train_step step (l2) at the 2M frame, timed
+    whole and split into forward, B2, fold, projection backward and Adam."""
+    camp = CameraParams.from_camera(cam, device)
+    bg = torch.zeros(3, device=device)
+    step = trainer.make_train_step((WIDTH, HEIGHT), CFG, lr=TRAIN_LR,
+                                   loss="l2")
+    torch.cuda.reset_peak_memory_stats()
+    row = {}
+    row["step"], runs = cuda_ms(
+        lambda: step(state, labels, camp, target, bg), reps=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    leaves = [t.detach().requires_grad_(True) for t in state.params]
+    scene = trainer.SceneParams(*leaves).to_scene(labels)
+
+    def forward():
+        out = _render_impl(scene, camp, bg, width=WIDTH, height=HEIGHT,
+                           cfg=CFG, with_labels=False)
+        return trainer.l2_loss(out["image"], target)
+
+    row["forward"], _ = cuda_ms(forward, reps=5, warmup=1)
+    loss = forward()
+    row["backward"], _ = cuda_ms(
+        lambda: torch.autograd.grad(loss, leaves, retain_graph=True),
+        reps=5, warmup=1)
+    grads = trainer.SceneParams(*torch.autograd.grad(loss, leaves))
+    fr = Frame(trainer.SceneParams(*(t.detach() for t in state.params))
+               .to_scene(labels), cam)
+    row["B2"], _ = cuda_ms(fr.blend_bwd, reps=5, warmup=1)
+    drows = fr.blend_bwd()
+    row["fold"], _ = cuda_ms(lambda: fr.fold(drows), reps=5, warmup=1)
+    rows = enumeration_rows(drows, fr.binning.je_sorted)
+    cs = blend.cumsum_rows(rows)
+    for part, fn in (
+            ("fold: scatter", lambda: enumeration_rows(
+                drows, fr.binning.je_sorted)),
+            ("fold: B3", lambda: blend.cumsum_rows(rows)),
+            ("fold: gathers", lambda: segment_sums(
+                cs, fr.binning.enum_start, fr.binning.enum_cnt))):
+        row[part], _ = cuda_ms(fn, reps=5, warmup=1)
+    opt = trainer.scaled_adam(TRAIN_LR)
+    row["adam"], _ = cuda_ms(
+        lambda: opt.update(grads, state.opt_state, state.params), reps=5,
+        warmup=1)
+    row["projection backward"] = row["backward"] - row["B2"] - row["fold"]
+    log({"measure": "train step", "frame": "2M view 0 (training state)",
+         "capacity": int(state.params.means.shape[0]), "ms": row,
+         "step_runs_ms": runs, "max_memory_allocated_bytes": peak,
+         "card": card})
+    return row, peak
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -341,14 +667,16 @@ def main() -> int:
     log({"check": "B4 enum_keys vs plain", "frame": "bench",
          "keys_equal": True, "slots": bench.bb.total})
     err_b1 = check_b1(bench, "bench")
+    err_b2 = check_b2(bench, "bench")
     counts = bench.instance_counts()
     log({"bench_frame_counts": counts, "jax_binning_counts": BENCH_COUNTS})
     if counts != BENCH_COUNTS:
         raise AssertionError("bench-frame instance counts differ from the "
                              "JAX binning's")
     check_small_render(device)
+    check_gradients(device)
 
-    # 3. main path: 2M gaussians through PLY, 8 views, with labels
+    # 3. serving path: 2M gaussians through PLY, 8 views, with labels
     t0 = time.perf_counter()
     made = random_scene(2_000_000, seed=0, extent=1.5,
                         scale_range=(0.002, 0.008), num_labels=16,
@@ -368,15 +696,13 @@ def main() -> int:
          "ply_bytes": ply_bytes, "seconds": time.perf_counter() - t0})
     cams = orbit_cameras(8, 3.0, width=WIDTH, img_height=HEIGHT)
 
-    tiles.enum_keys.launches = 0
-    blend.blend_tiles_fwd.launches = 0
+    reset_launches()
     frames = [render(scene, cam, CFG, with_labels=True, device=device)
               for cam in cams]
-    torch.cuda.synchronize()
-    launches = {"enum_keys": tiles.enum_keys.launches,
-                "blend_tiles_fwd": blend.blend_tiles_fwd.launches}
+    launches = read_launches()
     log({"phase": "main path", "views": len(cams), "launches": launches})
-    for name, n in launches.items():
+    for name in ("enum_keys", "blend_tiles_fwd"):
+        n = launches[name]
         if n != len(cams):
             raise AssertionError(f"{name} launched {n} times for "
                                  f"{len(cams)} frames")
@@ -401,9 +727,18 @@ def main() -> int:
     log({"check": "B4 enum_keys vs plain", "frame": "2M view 0",
          "keys_equal": True, "slots": big.bb.total})
     err_b1 = max(err_b1, check_b1(big, "2M view 0"))
+    err_b2 = max(err_b2, check_b2(big, "2M view 0"))
+    err_b3 = check_b3(big, "2M view 0")
     log({"main_frame_counts": big.instance_counts()})
 
-    # 4. times
+    # 4. training path: adaptive multiview steps at 2M, one densify
+    train_launches, state, labels, train_cams, targets = train_main_path(
+        scene, device)
+    train_row, train_peak = time_train_step(state, labels, train_cams[0],
+                                            targets[0], device, card)
+    del state, labels, targets
+
+    # 5. times
     results = {}
     for tag, fr, plain_reps in (("bench", bench, 10), ("2M view 0", big, 3)):
         torch.cuda.reset_peak_memory_stats()
@@ -417,8 +752,21 @@ def main() -> int:
             log({"measure": stage, "frame": tag, "ms": ms, "runs_ms": runs,
                  "card": card})
         peak = torch.cuda.max_memory_allocated()
+        rows = fr.fold_rows()
+        drows = fr.blend_bwd()
+        for stage, fn in (("B2 blend_tiles_bwd", fr.blend_bwd),
+                          ("fold", lambda: fr.fold(drows)),
+                          ("B3 cumsum_rows", lambda: blend.cumsum_rows(rows)),
+                          ("torch.cumsum", lambda: torch.cumsum(rows, 0))):
+            ms, runs = cuda_ms(fn)
+            row[stage] = ms
+            log({"measure": stage, "frame": tag, "ms": ms, "runs_ms": runs,
+                 "card": card})
         for stage, fn, reps in (("B4 plain", fr.enum_keys_plain, 10),
-                                ("B1 plain", fr.blend_plain, plain_reps)):
+                                ("B1 plain", fr.blend_plain, plain_reps),
+                                ("B2 plain", fr.blend_bwd_plain, plain_reps),
+                                ("B3 plain", lambda: blend._cumsum_rows_plain(
+                                    rows), 10)):
             ms, runs = cuda_ms(fn, reps=reps, warmup=1)
             row[stage] = ms
             log({"measure": stage, "frame": tag, "ms": ms, "runs_ms": runs,
@@ -428,6 +776,8 @@ def main() -> int:
                              "B1 blend_tiles_fwd"))
         b4 = fr.b4_bound()
         b1, evals, live, t_sfu = fr.b1_bound(sfu)
+        b2, _, _, _ = fr.b2_bound(sfu)
+        b3 = fr.b3_bound()
         log({"measure": "render peak memory", "frame": tag,
              "max_memory_allocated_bytes": peak, "card": card})
         log({"measure": "bounds", "frame": tag,
@@ -439,10 +789,17 @@ def main() -> int:
                     "all_pairs": int(fr.counts.sum()) * RC.tile_size ** 2,
                     "f32_ms": b1[3] / F32_FLOPS * 1e3, "exp_ms": t_sfu,
                     "exp_per_s": sfu},
+             "B2": {"bound_ms": b2[0], "bound_by": b2[1], "bytes": b2[2],
+                    "ops": b2[3], "f32_ms": b2[3] / F32_FLOPS * 1e3,
+                    "exp_ms": t_sfu},
+             "B3": {"bound_ms": b3[0], "bound_by": b3[1], "bytes": b3[2],
+                    "ops": b3[3]},
              "glue_ms": row["glue"], "card": card})
-        results[tag] = (row, b4, b1)
+        results[tag] = (row, b4, b1, b2, b3)
 
-    row, b4, b1 = results["2M view 0"]
+    row, b4, b1, b2, b3 = results["2M view 0"]
+    by_path = {k: {"render": launches[k], "train": train_launches[k]}
+               for k in launches}
     kernels = [
         {"name": "enum_keys", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/enum_keys.cu",
@@ -456,9 +813,29 @@ def main() -> int:
          "launches": launches["blend_tiles_fwd"], "max_abs_err": err_b1,
          "ms": row["B1 blend_tiles_fwd"], "plain_ms": row["B1 plain"],
          "bound_ms": b1[0], "bound_by": b1[1], "library_ms": None},
+        {"name": "blend_tiles_bwd", "route": "cuda",
+         "source": "gsplat_tpu_torch/csrc/blend_bwd.cu",
+         "replaces": "gsplat_tpu/render/blend_pallas.py:299",
+         "launches": train_launches["blend_tiles_bwd"],
+         "max_abs_err": err_b2, "ms": row["B2 blend_tiles_bwd"],
+         "plain_ms": row["B2 plain"], "bound_ms": b2[0], "bound_by": b2[1],
+         "library_ms": None},
+        {"name": "cumsum_rows", "route": "cuda",
+         "source": "gsplat_tpu_torch/csrc/cumsum_rows.cu",
+         "replaces": "gsplat_tpu/render/blend_pallas.py:534",
+         "launches": train_launches["cumsum_rows"], "max_abs_err": err_b3,
+         "ms": row["B3 cumsum_rows"], "plain_ms": row["B3 plain"],
+         "bound_ms": b3[0], "bound_by": b3[1],
+         "library_ms": row["torch.cumsum"]},
     ]
-    # no single PyTorch call computes either kernel's function, hence no
-    # library time
+    # "launches" counts each kernel on the path that brought it: the 8-view
+    # render for B4 and B1, the 10 training steps for B2 and B3; both
+    # counts are in launches_by_path. No single PyTorch call computes B4,
+    # B1 or B2, hence no library time; B3's is torch.cumsum.
+    for k in kernels:
+        k["launches_by_path"] = by_path[k["name"]]
+    log({"measure": "train step breakdown", "ms": train_row,
+         "max_memory_allocated_bytes": train_peak, "card": card})
     log(card)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

@@ -46,6 +46,10 @@ SIGNATURES = {
                   [_P] * 12 + [_I, _I, _I, _F, _I] + [_P, _P, _P]),
     "blend_fwd": ("gsplat_blend_fwd",
                   [_P] * 3 + [_I] * 6 + [_F] * 3 + [_I] + [_P] * 5),
+    "blend_bwd": ("gsplat_blend_bwd",
+                  [_P] * 3 + [_I] * 6 + [_F] * 3 + [_P] * 4 + [_I]
+                  + [_P] * 2),
+    "cumsum_rows": ("gsplat_cumsum_rows", [_P, _I, _P, _I, _P, _P]),
 }
 
 _functions: Dict[str, ctypes._CFuncPtr] = {}

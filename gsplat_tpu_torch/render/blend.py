@@ -1,18 +1,22 @@
-"""Forward tile blend: front-to-back alpha compositing of the sorted instance
-stream, with the optional best-weight label channel (kernel B1).
+"""Tile blend: front-to-back alpha compositing of the sorted instance stream,
+with the optional best-weight label channel (kernel B1), its backward
+(kernel B2) and the row prefix sum of the gradient fold (kernel B3).
 
-Counterpart of ``gsplat_tpu.render.blend_pallas`` for the forward pass. The
-JAX package walks 8-aligned windows of a materialised [B, 128] parameter
-array and writes [T, 8, P] tile rows that ``tiles_to_image`` reshapes; the
-port's kernel gathers each batch's parameters straight from the [N, 16]
-per-gaussian table and writes image layout, so neither the window array nor
+Counterpart of ``gsplat_tpu.render.blend_pallas``. The JAX package walks
+8-aligned windows of a materialised [B, 128] parameter array and writes
+[T, 8, P] tile rows that ``tiles_to_image`` reshapes; the port's kernels
+gather each batch's parameters straight from the [N, 16] per-gaussian table
+and read and write image layout, so neither the window array nor
 ``tiles_to_image`` exists here.
 
 Semantics (the oracle's, ref/rasterizer.py): alpha = min(alpha_max,
 opacity * exp(-q/2)), cut to 0 below alpha_min; w = T * alpha; C += w * c;
 T *= 1 - alpha; the label takes the first (front-most) maximum of w. Early
 stop: a batch of ``chunk`` instances is skipped only when the whole tile's
-max T is below ``early_eps``.
+max T is below ``early_eps``. The backward walks the same batches front to
+back with the suffix-sum trick of ``_bwd_win_kernel``: with the per-pixel
+seed D = C.dC + T_final.dT and the inclusive prefix p of w (c.dC), the
+suffix is S = D - p and dalpha = T (c.dC) - S / (1 - alpha).
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ PARAM_ROWS = 16
 
 # the kernel keeps at most 4 pixels per thread in registers, 256 threads
 MAX_TILE_PIXELS = 1024
-# shared memory per block is 10 columns x chunk x 4 bytes; stay under the
-# 48 KB a block gets without opting in
+# B1's shared memory per block is 10 columns x chunk x 4 bytes; stay under
+# the 48 KB a block gets without opting in (B2 stages 64 instances at a time
+# whatever the chunk)
 MAX_CHUNK = 1024
 
 
@@ -52,6 +57,29 @@ def _tiles_to_image(x: torch.Tensor, tiles_x: int, tiles_y: int,
     img = img.permute(0, 3, 1, 4, 2).reshape(
         tiles_y * tile_size, tiles_x * tile_size, c)
     return img[:height, :width]
+
+
+def _check_stream(name, ptab, inst_gauss, tile_bounds, *, tiles_x, tiles_y,
+                  tile_size, width, height, chunk) -> None:
+    """Raise on what the blend kernels do not take."""
+    if ptab.dtype != torch.float32 or ptab.dim() != 2 or \
+            ptab.shape[1] != PARAM_ROWS:
+        raise ValueError(f"{name} takes an f32 [N, 16] table")
+    if inst_gauss.dtype != torch.int32 or inst_gauss.dim() != 1:
+        raise ValueError(f"{name} takes i32 [B] gaussian indices")
+    if tile_bounds.dtype != torch.int32 or \
+            tile_bounds.shape != (tiles_x * tiles_y + 1,):
+        raise ValueError(f"{name} takes i32 [T + 1] tile bounds")
+    if not (ptab.is_contiguous() and inst_gauss.is_contiguous()
+            and tile_bounds.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous tensors")
+    if inst_gauss.device != ptab.device or tile_bounds.device != ptab.device:
+        raise ValueError(f"{name} inputs lie on different devices")
+    if tile_size * tile_size > MAX_TILE_PIXELS or not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"{name} needs tile_size^2 <= {MAX_TILE_PIXELS} "
+                         f"and 1 <= chunk <= {MAX_CHUNK}")
+    if width > tiles_x * tile_size or height > tiles_y * tile_size:
+        raise ValueError("the tile grid does not cover the image")
 
 
 def _blend_tiles_fwd_plain(ptab, inst_gauss, tile_bounds, *, tiles_x,
@@ -127,26 +155,11 @@ def blend_tiles_fwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
     batches of ``chunk`` instances staged in shared memory; bound by the
     exp and f32 operations of every instance-pixel pair); CPU tensors take
     the plain version."""
+    _check_stream("blend_tiles_fwd", ptab, inst_gauss, tile_bounds,
+                  tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
+                  width=width, height=height, chunk=chunk)
     dev = ptab.device
     num_tiles = tiles_x * tiles_y
-    if ptab.dtype != torch.float32 or ptab.dim() != 2 or \
-            ptab.shape[1] != PARAM_ROWS:
-        raise ValueError("blend_tiles_fwd takes an f32 [N, 16] table")
-    if inst_gauss.dtype != torch.int32 or inst_gauss.dim() != 1:
-        raise ValueError("blend_tiles_fwd takes i32 [B] gaussian indices")
-    if tile_bounds.dtype != torch.int32 or \
-            tile_bounds.shape != (num_tiles + 1,):
-        raise ValueError("blend_tiles_fwd takes i32 [T + 1] tile bounds")
-    if not (ptab.is_contiguous() and inst_gauss.is_contiguous()
-            and tile_bounds.is_contiguous()):
-        raise ValueError("blend_tiles_fwd takes contiguous tensors")
-    if inst_gauss.device != dev or tile_bounds.device != dev:
-        raise ValueError("blend_tiles_fwd inputs lie on different devices")
-    if tile_size * tile_size > MAX_TILE_PIXELS or not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"blend_tiles_fwd needs tile_size^2 <= "
-                         f"{MAX_TILE_PIXELS} and 1 <= chunk <= {MAX_CHUNK}")
-    if width > tiles_x * tile_size or height > tiles_y * tile_size:
-        raise ValueError("the tile grid does not cover the image")
     kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
               width=width, height=height, chunk=chunk, alpha_min=alpha_min,
               alpha_max=alpha_max, early_eps=early_eps,
@@ -172,3 +185,193 @@ def blend_tiles_fwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
 
 
 blend_tiles_fwd.launches = 0
+
+
+def _image_to_tiles(img: torch.Tensor, tiles_x: int, tiles_y: int,
+                    tile_size: int) -> torch.Tensor:
+    """[H, W, C] image -> [T, C, P] tile rows, zero outside the image (the
+    inverse of :func:`_tiles_to_image`)."""
+    h, w, c = img.shape
+    pad = img.new_zeros(tiles_y * tile_size, tiles_x * tile_size, c)
+    pad[:h, :w] = img
+    pad = pad.reshape(tiles_y, tile_size, tiles_x, tile_size, c)
+    return pad.permute(0, 2, 4, 1, 3).reshape(tiles_x * tiles_y, c,
+                                              tile_size * tile_size)
+
+
+def _blend_tiles_bwd_plain(ptab, inst_gauss, tile_bounds, rgb, trans, drgb,
+                           dtrans, *, tiles_x, tiles_y, tile_size, width,
+                           height, chunk, alpha_min, alpha_max, early_eps
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of kernel B2: the kernel's recurrence, one step
+    per stream position, vectorized over tiles and pixels (like
+    :func:`_blend_tiles_fwd_plain`, not autograd through it). T and the
+    prefix are formed with the kernel's operations in its order; only the
+    sums over a tile's pixels are associated differently."""
+    del width, height
+    dev = ptab.device
+    num_tiles = tiles_x * tiles_y
+    npix = tile_size * tile_size
+    start = tile_bounds[:-1].long()
+    cnt = (tile_bounds[1:] - tile_bounds[:-1]).long()
+    steps = int(cnt.max()) if num_tiles else 0
+    pid = torch.arange(npix, device=dev)
+    px = ((pid % tile_size).to(torch.float32) + 0.5)[None, :]
+    py = ((pid // tile_size).to(torch.float32) + 0.5)[None, :]
+    tid = torch.arange(num_tiles, device=dev)
+    x0f = ((tid % tiles_x) * tile_size).to(torch.float32)
+    y0f = ((tid // tiles_x) * tile_size).to(torch.float32)
+    to_tiles = lambda x: _image_to_tiles(x, tiles_x, tiles_y, tile_size)
+    c_t, dc_t = to_tiles(rgb), to_tiles(drgb)                # [T, 3, P]
+    t_fin = to_tiles(trans[..., None])[:, 0]
+    dt_fin = to_tiles(dtrans[..., None])[:, 0]
+    dr, dg, db = dc_t[:, 0], dc_t[:, 1], dc_t[:, 2]
+    seed = (c_t[:, 0] * dr + c_t[:, 1] * dg + c_t[:, 2] * db
+            + t_fin * dt_fin)
+    t_run = torch.ones(num_tiles, npix, device=dev)
+    prefix = torch.zeros(num_tiles, npix, device=dev)
+    drows = torch.zeros(inst_gauss.shape[0], PARAM_ROWS, device=dev)
+    alive = torch.ones(num_tiles, dtype=torch.bool, device=dev)
+    last = max(inst_gauss.shape[0] - 1, 0)
+    zero = torch.zeros(num_tiles, device=dev)
+    for step in range(steps):
+        if step % chunk == 0:
+            alive = alive & (t_run.amax(dim=1) >= early_eps)
+        run = alive & (step < cnt)
+        g = inst_gauss[torch.clamp(start + step, max=last)].long()
+        row = ptab[g]                                          # [T, 16]
+        ca, cb, cc, op = (row[:, P_CA], row[:, P_CB], row[:, P_CC],
+                          row[:, P_OP])
+        dx = px - (row[:, P_MX] - x0f)[:, None]
+        dy = py - (row[:, P_MY] - y0f)[:, None]
+        q = ((ca[:, None] * dx + (2.0 * cb)[:, None] * dy) * dx
+             + cc[:, None] * dy * dy)
+        raw = op[:, None] * torch.exp(-0.5 * q)
+        alpha = torch.clamp_max(raw, alpha_max)
+        live = (alpha >= alpha_min) & run[:, None]
+        alpha = torch.where(live, alpha, torch.zeros_like(alpha))
+        w = t_run * alpha
+        cgrad = (row[:, P_R, None] * dr + row[:, P_G, None] * dg
+                 + row[:, P_B, None] * db)
+        contrib = w * cgrad
+        prefix = prefix + contrib
+        one_m = 1.0 - alpha
+        dq = torch.where(live & (raw < alpha_max),
+                         -0.5 * (contrib - (seed - prefix) * (alpha / one_m)),
+                         torch.zeros_like(alpha))
+        t1 = dq * dx
+        t2 = dq * dy
+        cx, cy = t1.sum(1), t2.sum(1)
+        vals = torch.stack(
+            [-2.0 * ca * cx - 2.0 * cb * cy, -2.0 * cc * cy - 2.0 * cb * cx,
+             (t1 * dx).sum(1), 2.0 * (t1 * dy).sum(1), (t2 * dy).sum(1),
+             -2.0 * dq.sum(1) / torch.clamp_min(op, 1e-20),
+             (w * dr).sum(1), (w * dg).sum(1), (w * db).sum(1)]
+            + [zero] * (PARAM_ROWS - 9), dim=1)
+        drows[(start + step)[run]] = vals[run]
+        t_run = t_run * one_m
+    return drows
+
+
+def blend_tiles_bwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
+                    tile_bounds: torch.Tensor, rgb: torch.Tensor,
+                    transmittance: torch.Tensor, drgb: torch.Tensor,
+                    dtrans: torch.Tensor, *, tiles_x: int, tiles_y: int,
+                    tile_size: int, width: int, height: int, chunk: int,
+                    alpha_min: float, alpha_max: float,
+                    early_eps: float) -> torch.Tensor:
+    """Kernel B2 wrapper: per-instance gradient rows [B, 16] in sorted-stream
+    order (columns d_mx, d_my, d_ca, d_cb, d_cc, d_op, d_r, d_g, d_b; the
+    rest zero) from the forward's ``rgb`` [H, W, 3] (no background) and
+    ``transmittance`` [H, W] and their cotangents. Rows of instances that
+    early stop skipped, and of filtered slots past the last tile, are zero.
+
+    Replaces ``gsplat_tpu/render/blend_pallas.py::_bwd_win_kernel``. On the
+    card it launches ``csrc/blend_bwd.cu`` (one 256-thread block per tile,
+    B1's batches walked front to back, per-instance sums by warp shuffles
+    and a fixed-order sum over warps; bound by the exp and f32 operations
+    of every instance-pixel pair, and in this design by the reduction);
+    CPU tensors take the plain version."""
+    _check_stream("blend_tiles_bwd", ptab, inst_gauss, tile_bounds,
+                  tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
+                  width=width, height=height, chunk=chunk)
+    dev = ptab.device
+    for t, shape in ((rgb, (height, width, 3)), (drgb, (height, width, 3)),
+                     (transmittance, (height, width)),
+                     (dtrans, (height, width))):
+        if t.dtype != torch.float32 or t.shape != shape:
+            raise ValueError(f"blend_tiles_bwd takes f32 image tensors of "
+                             f"shape {shape}")
+        if not t.is_contiguous() or t.device != dev:
+            raise ValueError("blend_tiles_bwd takes contiguous image tensors "
+                             "on the table's device")
+    kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
+              width=width, height=height, chunk=chunk, alpha_min=alpha_min,
+              alpha_max=alpha_max, early_eps=early_eps)
+    if dev.type == "cpu":
+        return _blend_tiles_bwd_plain(ptab, inst_gauss, tile_bounds, rgb,
+                                      transmittance, drgb, dtrans, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"blend_tiles_bwd: no kernel for {dev}")
+    total = inst_gauss.shape[0]
+    num_tiles = tiles_x * tiles_y
+    if num_tiles == 0:
+        return torch.zeros(total, PARAM_ROWS, device=dev)
+    drows = torch.empty(total, PARAM_ROWS, device=dev)
+    fn = _kernels.function("blend_bwd")
+    err = fn(ptab.data_ptr(), inst_gauss.data_ptr(), tile_bounds.data_ptr(),
+             num_tiles, tiles_x, tile_size, width, height, chunk, alpha_min,
+             alpha_max, early_eps, rgb.data_ptr(), transmittance.data_ptr(),
+             drgb.data_ptr(), dtrans.data_ptr(), total, drows.data_ptr(),
+             _kernels.stream(dev))
+    blend_tiles_bwd.launches += 1
+    _kernels.check("blend_bwd", err)
+    return drows
+
+
+blend_tiles_bwd.launches = 0
+
+# rows per block of csrc/cumsum_rows.cu (kBlockRows); sizes its scratch
+CUMSUM_BLOCK_ROWS = 512
+
+
+def _cumsum_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel B3."""
+    return torch.cumsum(x, 0)
+
+
+def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Kernel B3 wrapper: inclusive prefix sum of an f32 [B, 16] array along
+    its rows (one call may launch several kernels; it counts as one launch).
+
+    Replaces ``gsplat_tpu/render/blend_pallas.py::_cumsum_rows_kernel``. On
+    the card it launches ``csrc/cumsum_rows.cu`` (per-block column totals, a
+    one-block scan of those, a per-block scan plus offset; bound by bytes);
+    CPU tensors take the plain version."""
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != PARAM_ROWS:
+        raise ValueError("cumsum_rows takes an f32 [B, 16] array")
+    if not x.is_contiguous():
+        raise ValueError("cumsum_rows takes a contiguous array")
+    if x.device.type == "cpu":
+        return _cumsum_rows_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"cumsum_rows: no kernel for {x.device}")
+    rows = x.shape[0]
+    if rows >= 2 ** 31 or x.data_ptr() % 16:
+        raise ValueError("cumsum_rows takes fewer than 2^31 rows, 16-byte "
+                         "aligned")
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    nblk = -(-rows // CUMSUM_BLOCK_ROWS)
+    scratch = torch.empty(nblk, PARAM_ROWS, dtype=torch.float64,
+                          device=x.device)
+    fn = _kernels.function("cumsum_rows")
+    err = fn(x.data_ptr(), rows, scratch.data_ptr(), nblk, out.data_ptr(),
+             _kernels.stream(x.device))
+    cumsum_rows.launches += 1
+    _kernels.check("cumsum_rows", err)
+    return out
+
+
+cumsum_rows.launches = 0

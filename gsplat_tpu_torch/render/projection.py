@@ -57,6 +57,20 @@ class Projected(NamedTuple):
     valid: torch.Tensor    # bool
 
 
+def quat_to_rotmat(quats: torch.Tensor) -> torch.Tensor:
+    """[N, 4] (w, x, y, z) -> [N, 3, 3]."""
+    q = quats / torch.linalg.vector_norm(quats, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
+
+
 def _sigma3_entries(log_scales: torch.Tensor, quats: torch.Tensor):
     """Unique entries of Sigma3 = R diag(exp(2s)) R^T as six [N] tensors
     (s00, s01, s02, s11, s12, s22), all elementwise."""

@@ -37,11 +37,17 @@ class BBoxes(NamedTuple):
 
 
 class TileBinning(NamedTuple):
-    """The sorted instance stream and each tile's range of it."""
+    """The sorted instance stream and each tile's range of it.
+
+    Enumeration is gaussian-major, so gaussian g owns the consecutive
+    enumeration slots ``[enum_start[g], enum_start[g] + enum_cnt[g])``; the
+    backward fold sums each gaussian's gradient rows over that range."""
 
     inst_gauss: torch.Tensor   # [B] i32 gaussian index per sorted slot
     je_sorted: torch.Tensor    # [B] i32 enumeration slot per sorted slot
     tile_bounds: torch.Tensor  # [T + 1] i32: tile t owns [b[t], b[t+1])
+    enum_start: torch.Tensor   # [N] i32 first enumeration slot per gaussian
+    enum_cnt: torch.Tensor     # [N] i32 bbox slot count per gaussian
     num_instances: torch.Tensor  # scalar i32 tight (kept) instance count
     num_slots: int             # bbox enumeration slots
     num_dropped: torch.Tensor  # scalar i32, always 0 (exact sizing)
@@ -209,8 +215,8 @@ def bin_tiles(proj: Projected, *, tiles_x: int, tiles_y: int,
     tile_bounds = torch.searchsorted(keys, bounds, out_int32=True)
     return TileBinning(
         inst_gauss=gauss[perm], je_sorted=perm.to(torch.int32),
-        tile_bounds=tile_bounds, num_instances=tile_bounds[-1],
-        num_slots=bb.total,
+        tile_bounds=tile_bounds, enum_start=bb.offsets, enum_cnt=bb.cnt,
+        num_instances=tile_bounds[-1], num_slots=bb.total,
         num_dropped=torch.zeros((), dtype=torch.int32, device=keys.device))
 
 

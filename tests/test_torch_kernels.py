@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (B4 ``enum_keys``, B1 ``blend_tiles_fwd``) and
-their wrappers.
+"""The port's CUDA kernels (B4 ``enum_keys``, B1 ``blend_tiles_fwd``, B2
+``blend_tiles_bwd``, B3 ``cumsum_rows``) and their wrappers.
 
 This file imports neither jax nor ``gsplat_tpu``, so on a machine with a card
 and only PyTorch it runs without the JAX harness of ``conftest.py``:
@@ -17,6 +17,7 @@ import torch
 from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.config import UNLABELED
 from gsplat_tpu_torch.io import cameras, synthetic
+from gsplat_tpu_torch.models import trainer
 from gsplat_tpu_torch.render import api, blend, projection, tiles
 
 torch.set_num_threads(2)
@@ -141,6 +142,35 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                                  "height": 128})
 
 
+def test_backward_wrappers_reject_what_the_kernels_do_not_take():
+    proj = _diagonal_splat("cpu")
+    ptab = api.pack_table(proj, torch.zeros(1, dtype=torch.int32))
+    inst = torch.zeros(1, dtype=torch.int32)
+    h, w = 100, 128
+    img, t = torch.zeros(h, w, 3), torch.ones(h, w)
+    kw = dict(tiles_x=4, tiles_y=4, tile_size=32, width=w, height=h,
+              chunk=64, alpha_min=1 / 255, alpha_max=0.999, early_eps=0.0)
+    bounds = torch.tensor([0] * 6 + [1] * 11, dtype=torch.int32)
+    drows = blend.blend_tiles_bwd(ptab, inst, bounds, img, t, img, t, **kw)
+    assert drows.shape == (1, 16)
+    bad = [(img[:, :-1], t, img, t), (img, t, img.double(), t),
+           (img, t.t().contiguous().t(), img, t), (img, t, img, t[:-1])]
+    for args in bad:
+        with pytest.raises(ValueError):
+            blend.blend_tiles_bwd(ptab, inst, bounds, *args, **kw)
+    with pytest.raises(ValueError):
+        blend.blend_tiles_bwd(ptab, inst.long(), bounds, img, t, img, t,
+                              **kw)
+    with pytest.raises(ValueError):
+        blend.blend_tiles_bwd(ptab, inst, bounds, img, t, img, t,
+                              **{**kw, "chunk": 0})
+    x = torch.zeros(10, 16)
+    assert torch.equal(blend.cumsum_rows(x), x)
+    for bad_x in (torch.zeros(10, 8), x.double(), torch.zeros(16, 10).t()):
+        with pytest.raises(ValueError):
+            blend.cumsum_rows(bad_x)
+
+
 def test_kernel_libraries_are_keyed_by_source():
     paths = {name: _kernels.library_path(name) for name in _kernels.SIGNATURES}
     assert len(set(paths.values())) == len(paths)
@@ -220,3 +250,107 @@ def test_render_on_card_matches_cpu(card):
         assert err.max() <= 5e-3, key
         assert (err <= 1e-5).float().mean() >= 0.999, key
     assert (got["label_map"].cpu() == want["label_map"]).float().mean() >= 0.999
+
+
+def _frame_stream(device, tile_size):
+    scene, cam, proj, tx, ty = _card_frame(device, tile_size)
+    b = tiles.bin_tiles(proj, tiles_x=tx, tiles_y=ty, tile_size=tile_size)
+    return scene, cam, proj, tx, ty, b, api.pack_table(proj, scene.labels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [0.0, 1e-5])
+@pytest.mark.parametrize("tile_size,chunk", [(32, 64), (16, 128)])
+def test_blend_bwd_kernel_matches_plain(card, eps, tile_size, chunk):
+    _, cam, _, tx, ty, b, ptab = _frame_stream(card, tile_size)
+    kw = dict(tiles_x=tx, tiles_y=ty, tile_size=tile_size, width=cam.width,
+              height=cam.height, chunk=chunk, alpha_min=1 / 255,
+              alpha_max=0.999, early_eps=eps)
+    fwd = blend.blend_tiles_fwd(ptab, b.inst_gauss, b.tile_bounds, **kw,
+                                with_labels=False)
+    gen = torch.Generator(device=card).manual_seed(5)
+    drgb = torch.randn(cam.height, cam.width, 3, generator=gen, device=card)
+    dtrans = torch.randn(cam.height, cam.width, generator=gen, device=card)
+    args = (ptab, b.inst_gauss, b.tile_bounds, fwd.rgb, fwd.transmittance,
+            drgb, dtrans)
+    before = blend.blend_tiles_bwd.launches
+    got = blend.blend_tiles_bwd(*args, **kw)
+    ref = blend._blend_tiles_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert blend.blend_tiles_bwd.launches == before + 1
+    # T and the prefix repeat the plain version's operations; the per-tile
+    # sums over pixels are associated differently: 1e-4 of each column's
+    # peak. Zero rows (early stop, no live pixel, filtered slots) are exact.
+    peak = ref[:, :9].abs().amax(0)
+    err = (got[:, :9] - ref[:, :9]).abs().amax(0) / peak
+    assert (err <= 1e-4).all(), err
+    assert torch.equal((got == 0).all(1), (ref == 0).all(1))
+    assert not got[:, 9:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 511, 512, 513, 100_003])
+def test_cumsum_rows_kernel_matches_float64(card, rows):
+    gen = torch.Generator(device=card).manual_seed(rows)
+    # a drift of 0.1 per row, as gradient rows have, so the peak prefix is
+    # not a random walk's
+    x = torch.randn(rows, 16, generator=gen, device=card) + 0.1
+    before = blend.cumsum_rows.launches
+    got = blend.cumsum_rows(x)
+    torch.cuda.synchronize()
+    assert blend.cumsum_rows.launches == before + 1
+    want = torch.cumsum(x.double(), 0)
+    err = (got.double() - want).abs().amax(0) / want.abs().amax(0)
+    # an f32 sum chain of rows / 32768 + 112 additions per output
+    assert (err <= 1e-6).all(), err
+
+
+@pytest.mark.gpu
+def test_render_gradients_on_card_match_cpu(card):
+    scene = synthetic.random_scene(2000, seed=21, num_labels=6, device="cpu")
+    cam = cameras.look_at_camera((0.2, -0.3, -3.0), (0, 0, 0), width=128,
+                                 height=96)
+    target = torch.from_numpy(np.random.default_rng(2).uniform(
+        size=(96, 128, 3)).astype(np.float32))
+    grads = {}
+    before = (blend.blend_tiles_bwd.launches, blend.cumsum_rows.launches)
+    for dev in (card, torch.device("cpu")):
+        s = scene.to(dev)
+        params = trainer.SceneParams.from_scene(s)
+        for p in params:
+            p.requires_grad_(True)
+        out = api.render(params.to_scene(s.labels), cam, device=dev)
+        loss = trainer.l2_loss(out["image"], target.to(dev))
+        grads[dev.type] = [g.cpu() for g in torch.autograd.grad(loss, params)]
+    assert (blend.blend_tiles_bwd.launches,
+            blend.cumsum_rows.launches) == (before[0] + 1, before[1] + 1)
+    # projection runs through the card's and the host's exp/log/sqrt, which
+    # may move one alpha across the 1/255 cut: 1e-3 of each tensor's peak
+    for f, g_card, g_cpu in zip(trainer.SceneParams._fields, grads["cuda"],
+                                grads["cpu"]):
+        assert torch.isfinite(g_card).all(), f
+        err = (g_card - g_cpu).abs().max() / g_cpu.abs().max()
+        assert err <= 1e-3, (f, float(err))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["l1", "l2", "ssim", "dssim_l1"])
+def test_losses_on_card_match_cpu(card, name):
+    from gsplat_tpu_torch.models import losses
+    rng = np.random.default_rng(5)
+    img = rng.uniform(size=(96, 128, 3)).astype(np.float32)
+    tgt = np.clip(img + rng.normal(0, 0.1, size=img.shape), 0, 1).astype(
+        np.float32)
+    fn = {"l1": losses.l1_loss, "l2": losses.l2_loss, "ssim": losses.ssim,
+          "dssim_l1": losses.dssim_l1_loss}[name]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        x = torch.from_numpy(img).to(dev).requires_grad_(True)
+        v = fn(x, torch.from_numpy(tgt).to(dev))
+        (g,) = torch.autograd.grad(v, x)
+        out[dev.type] = (float(v), g.cpu())
+    # the blur is shifted f32 products on both devices (no TF32 convolution),
+    # so only the order of the mean's sums differs
+    (vc, gc), (vh, gh) = out["cuda"], out["cpu"]
+    assert abs(vc - vh) <= 1e-5 * max(abs(vh), 1.0)
+    assert float((gc - gh).abs().max() / gh.abs().max()) <= 1e-4
