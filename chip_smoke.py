@@ -2,10 +2,13 @@
 """Drive the PyTorch/CUDA port (``gsplat_tpu_torch``) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rehearse [--views 64] [--reduce 100]
 
 Run from the root of the repository, on a machine with an NVIDIA Hopper card
 and the CUDA toolkit. It exits nonzero, printing no result, without a card
-or without the repository beside it. Phases (any failure stops the run):
+or without the repository beside it. ``--rehearse`` runs phase L alone at
+reduced size on the CPU instead (see :func:`rehearse`), which is where
+LABEL_AGREEMENT_BAR comes from. Phases (any failure stops the run):
 
 0. the card's name and power limit, as nvidia-smi reports them;
 1. build every kernel from ``gsplat_tpu_torch/csrc`` (one nvcc per source,
@@ -17,14 +20,25 @@ or without the repository beside it. Phases (any failure stops the run):
    of each column's peak, zero rows equal), the instance counts against the
    JAX binning's, a small render on the card against the same render on the
    CPU, and the gradients of all five scene tensors on the card against the
-   CPU's (within 1e-3 of each tensor's peak);
+   CPU's (within 1e-3 of each tensor's peak); B5 against its plain version
+   (image, T and best weight within 1e-5, labels equal, per-instance rows
+   within 1e-5 and zero past the last tile), and both label votes on the
+   card against the CPU on two small scenes;
 3. the serving path at real size: a 2M-gaussian scene written to PLY, loaded
    back through ``scene_from_ply`` and rendered with labels from 8 orbit
    views at 800x608 through ``render``; outputs finite and covered, nothing
-   dropped, B4 and B1 launched once per frame; then B4, B1 and B2 against
-   their plain versions on one of those frames, and B3 against a float64
-   prefix sum on that frame's gradient fold (within 1e-6 of each column's
-   peak prefix);
+   dropped, B4 and B1 launched once per frame; then B4, B1, B2 and B5
+   against their plain versions on one of those frames, and B3 against a
+   float64 prefix sum on that frame's gradient fold (within 1e-6 of each
+   column's peak prefix);
+L. the labeling path at real size, through ``gsplat_tpu_torch.cli.label``:
+   the 2M scene labeled in 16 slabs along x, 311 orbit views at 800x608,
+   seg maps made from the port's own label maps at 400x304, the CLI run with
+   ``--model npy`` in ``--mode visible`` and ``--mode center``; labels in
+   range, B5 launched once per view in the visible run and never in the
+   center run, the visible vote's agreement with the slabs above the center
+   vote's and above LABEL_AGREEMENT_BAR; the visibility pass and the vote
+   timed;
 4. the training path at real size: 10 steps of
    ``make_adaptive_multiview_train_step`` over 4 views of the 2M scene,
    perturbed, padded to 1.25x capacity, with one ``densify_and_prune`` and
@@ -32,7 +46,7 @@ or without the repository beside it. Phases (any failure stops the run):
    dropped, B4, B1, B2 and B3 launched once per view per step; then one
    single-view ``make_train_step`` step timed and split into its stages;
 5. times on the card (CUDA events, median of 10 after warm-up) of
-   projection, B4, the sort, B1, B2, B3, ``torch.cumsum`` and the whole
+   projection, B4, the sort, B1, B2, B3, B5, ``torch.cumsum`` and the whole
    render at both frames, the plain versions' times, bounds, and peak
    device memory.
 
@@ -42,7 +56,10 @@ The second-to-last line of stdout is the kernel table as JSON; the last is
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -53,10 +70,14 @@ import numpy as np
 import torch
 
 from gsplat_tpu_torch import _kernels
+from gsplat_tpu_torch.cli import label as label_cli
 from gsplat_tpu_torch.config import DEFAULT, UNLABELED
-from gsplat_tpu_torch.io.cameras import look_at_camera, orbit_cameras
-from gsplat_tpu_torch.io.ply import scene_from_ply, scene_to_ply
+from gsplat_tpu_torch.io.cameras import (look_at_camera, orbit_cameras,
+                                         save_cameras)
+from gsplat_tpu_torch.io.ply import read_ply, scene_from_ply, scene_to_ply
 from gsplat_tpu_torch.io.synthetic import random_scene
+from gsplat_tpu_torch.label import vote
+from gsplat_tpu_torch.label.adapters import _nearest_resize
 from gsplat_tpu_torch.models import densify, trainer
 from gsplat_tpu_torch.render import blend, tiles
 from gsplat_tpu_torch.render.api import (_render_impl, enumeration_rows,
@@ -64,6 +85,7 @@ from gsplat_tpu_torch.render.api import (_render_impl, enumeration_rows,
                                          render, segment_sums)
 from gsplat_tpu_torch.render.projection import (CameraParams, project,
                                                 tile_grid)
+from gsplat_tpu_torch.scene import color_to_dc, scene_from_numpy
 
 REPO = Path(__file__).resolve().parent
 WIDTH, HEIGHT = 800, 608
@@ -75,18 +97,24 @@ BENCH_COUNTS = dict(valid=80157, tiles=475, slots=198762, tight=191177,
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# f32 operations per evaluated (instance, pixel) pair of B1: dx, dy (2),
-# q (7), -q/2 (1), exp counted as 1, opacity product, clamp and cut (3); and
-# per live pair (alpha past the cut): the weight (1), RGB accumulation (6),
-# the label test (1) and the T update (2)
-B1_OPS_PER_EVAL = 14
+# The least work of the blend kernels B1, B2 and B5, as this run's data
+# needs it. The cut alpha >= alpha_min is a test of q alone (q <= the
+# gaussian's 2 ln(opacity / alpha_min)), so only the pairs past the cut need
+# an exp; the q test itself is needed only for the pixels inside each
+# instance's cutoff box (the projection's ex, ey half-extents, outside which
+# no alpha passes the cut). f32 operations per tested (instance, pixel)
+# pair: dx, dy (2), q (7) and the compare (1); per live pair (alpha past the
+# cut): -q/2, the opacity product and the clamp (3), and for B1 the weight
+# (1), RGB accumulation (6), the label test (1) and the T update (2)
+Q_TEST_OPS = 10
+ALPHA_OPS = 3
 B1_OPS_PER_LIVE = 10
 # exp2 results per clock per SM of the special-function units on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction table);
 # expf issues one of them
 SFU_PER_CLOCK_PER_SM = 16
 # f32 operations per live (instance, pixel) pair of B2, counted from
-# csrc/blend_bwd.cu past what B1 counts: the weight (1), c.dC (5), the
+# csrc/blend_bwd.cu past the q test and alpha: the weight (1), c.dC (5), the
 # contribution and prefix (2), the suffix (1), 1 - alpha and the ratio (2),
 # dq with its clamp test (4), the dq.dx / dq.dy products (2), the six moment
 # sums (9), the colour sums (6) and the T update (1)
@@ -117,6 +145,21 @@ DENSIFY_AFTER = 5
 # those that get no child, and that shrinks most of the scene at once
 DENSIFY_NEW_FRACTION = 0.01
 SCENE_EXTENT = 1.5
+
+# Phase L, the labeling path. 311 views is the reference capture's camera
+# count (and bench_vote.py's default); 151 classes is ADE20K's head, the
+# CLI's default. The seg maps are half the frame, so the vote scales pixel
+# coordinates to the map as it does for a segmentation model's output.
+LABEL_VIEWS = 311
+LABEL_CLASSES = 151
+LABEL_SLABS = 16
+SEG_SIZE = (WIDTH // 2, HEIGHT // 2)
+VISIBILITY_THRESHOLD = 0.05
+# The visible vote's share of labeled gaussians whose label is their slab
+# must exceed this (16 slabs give 1/16 by chance). Set below the CPU
+# rehearsals at reduced size, ``--rehearse``: 0.605 at --reduce 100 over 64
+# views, 0.638 at --reduce 16 over 32 views (PERF.md).
+LABEL_AGREEMENT_BAR = 0.5
 
 
 def log(obj) -> None:
@@ -214,6 +257,22 @@ class Frame:
                                             self.binning.tile_bounds,
                                             **self._blend_kw(eps))
 
+    def _vis_kw(self):
+        kw = self._blend_kw(0.0)
+        del kw["early_eps"]
+        return kw
+
+    def blend_vis(self):
+        return blend.blend_tiles_vis(self.ptab, self.binning.inst_gauss,
+                                     self.binning.tile_bounds,
+                                     **self._vis_kw())
+
+    def blend_vis_plain(self):
+        return blend._blend_tiles_vis_plain(self.ptab,
+                                            self.binning.inst_gauss,
+                                            self.binning.tile_bounds,
+                                            **self._vis_kw())
+
     def render(self):
         return render(self.scene, self.cam, CFG, with_labels=True,
                       device=self.scene.device)
@@ -232,18 +291,20 @@ class Frame:
         return bound(nbytes, ops)
 
     def b1_work(self, eps):
-        """(evaluated, live) instance-pixel pairs of B1 (and B2, which walks
-        the same batches) under early stop ``eps``; computed once per eps."""
+        """(evaluated, tested, live) instance-pixel pairs of B1 (and B2,
+        which walks the same batches; B5 at eps 0) under early stop ``eps``;
+        computed once per eps."""
         if eps not in self._work:
             self._work[eps] = self._b1_work(eps)
         return self._work[eps]
 
     def _b1_work(self, eps):
-        """(evaluated, live) instance-pixel pairs of B1 under early stop
-        ``eps``: replays the kernel's tile-wide stop rule (a batch runs only
-        while the tile's max T >= eps) on T alone, step by step as the plain
-        version composites, and counts the pairs of the batches that run and
-        those whose alpha passes the cut."""
+        """(evaluated, tested, live) instance-pixel pairs of B1 under early
+        stop ``eps``: replays the kernel's tile-wide stop rule (a batch runs
+        only while the tile's max T >= eps) on T alone, step by step as the
+        plain version composites, and counts the pairs of the batches that
+        run, those of them inside the instance's cutoff box (or past the
+        cut), and those whose alpha passes the cut."""
         b = self.binning.tile_bounds
         start, cnt = b[:-1].long(), (b[1:] - b[:-1]).long()
         ts, chunk = RC.tile_size, CFG.tiles.chunk
@@ -257,14 +318,16 @@ class Frame:
         trans = torch.ones(self.num_tiles, ts * ts, device=dev)
         alive = torch.ones(self.num_tiles, dtype=torch.bool, device=dev)
         evaluated = torch.zeros((), dtype=torch.int64, device=dev)
+        tested = torch.zeros((), dtype=torch.int64, device=dev)
         live_pairs = torch.zeros((), dtype=torch.int64, device=dev)
         last = max(self.binning.inst_gauss.shape[0] - 1, 0)
         for step in range(int(cnt.max())):
             if step % chunk == 0:
                 alive = alive & (trans.amax(dim=1) >= eps)
             run = alive & (step < cnt)
-            row = self.ptab[self.binning.inst_gauss[
-                torch.clamp(start + step, max=last)].long()]
+            g = self.binning.inst_gauss[
+                torch.clamp(start + step, max=last)].long()
+            row = self.ptab[g]
             dx = px - (row[:, blend.P_MX, None] - x0f)
             dy = py - (row[:, blend.P_MY, None] - y0f)
             q = ((row[:, blend.P_CA, None] * dx
@@ -273,24 +336,45 @@ class Frame:
             alpha = torch.clamp_max(
                 row[:, blend.P_OP, None] * torch.exp(-0.5 * q), RC.alpha_max)
             cut = (alpha >= RC.alpha_min) & run[:, None]
+            inbox = ((dx.abs() <= self.proj.ex[g, None])
+                     & (dy.abs() <= self.proj.ey[g, None]))
             alpha = torch.where(cut, alpha, torch.zeros_like(alpha))
             trans = trans * (1.0 - alpha)
             evaluated += run.sum() * (ts * ts)
+            tested += ((inbox & run[:, None]) | cut).sum()
             live_pairs += cut.sum()
-        return int(evaluated), int(live_pairs)
+        return int(evaluated), int(tested), int(live_pairs)
+
+    def blend_ops(self, eps, ops_per_live: int, sfu_per_s: float):
+        """(evaluated, tested, live, f32 ops, exp ms) of a blend kernel at
+        early stop ``eps``: the q test per tested pair, alpha and
+        ``ops_per_live`` per live pair, one exp per live pair."""
+        evals, tested, live = self.b1_work(eps)
+        ops = tested * Q_TEST_OPS + live * (ALPHA_OPS + ops_per_live)
+        return evals, tested, live, ops, live / sfu_per_s * 1e3
 
     def b1_bound(self, sfu_per_s: float):
-        evals, live = self.b1_work(RC.early_stop_eps)
+        evals, tested, live, ops, t_sfu = self.blend_ops(
+            RC.early_stop_eps, B1_OPS_PER_LIVE, sfu_per_s)
         n = self.proj.u.shape[0]
         # each input read once: the [N, 16] table, the instance indices, the
         # tile bounds; rgb, T, best weight and label written once
         nbytes = (n * 16 * 4 + self.binning.inst_gauss.numel() * 4
                   + (self.num_tiles + 1) * 4
                   + self.cam.width * self.cam.height * 6 * 4)
-        ops = evals * B1_OPS_PER_EVAL + live * B1_OPS_PER_LIVE
-        t_sfu = evals / sfu_per_s * 1e3   # one exp per evaluated pair
-        return bound(nbytes, ops, t_sfu), evals, live, t_sfu
+        return bound(nbytes, ops, t_sfu), evals, tested, live, t_sfu
 
+    def b5_bound(self, sfu_per_s: float):
+        """B5 evaluates every (instance, pixel) pair, counts.sum() x
+        tile_size^2 (no early stop), but needs only B1's work at eps 0 plus
+        the max per live pair; B1's bytes plus the [B] f32 rows."""
+        evals, tested, live, ops, t_sfu = self.blend_ops(
+            0.0, B1_OPS_PER_LIVE + 1, sfu_per_s)
+        n = self.proj.u.shape[0]
+        b = self.binning.inst_gauss.numel()
+        nbytes = (n * 16 * 4 + b * 4 + (self.num_tiles + 1) * 4
+                  + self.cam.width * self.cam.height * 6 * 4 + b * 4)
+        return bound(nbytes, ops, t_sfu), evals, tested, live, t_sfu
 
     def bwd_args(self, eps=RC.early_stop_eps):
         """B2's inputs at early stop ``eps``: the stream, B1's (rgb, T)
@@ -331,16 +415,15 @@ class Frame:
                                   self.binning.enum_cnt)
 
     def b2_bound(self, sfu_per_s: float):
-        evals, live = self.b1_work(RC.early_stop_eps)
+        evals, tested, live, ops, t_sfu = self.blend_ops(
+            RC.early_stop_eps, B2_OPS_PER_LIVE, sfu_per_s)
         n = self.proj.u.shape[0]
         b = self.binning.inst_gauss.numel()
         # the [N, 16] table, indices, tile bounds, rgb/T and their
         # cotangents read once; the [B, 16] rows written once
         nbytes = (n * 16 * 4 + b * 4 + (self.num_tiles + 1) * 4
                   + self.cam.width * self.cam.height * 8 * 4 + b * 16 * 4)
-        ops = evals * B1_OPS_PER_EVAL + live * B2_OPS_PER_LIVE
-        t_sfu = evals / sfu_per_s * 1e3
-        return bound(nbytes, ops, t_sfu), evals, live, t_sfu
+        return bound(nbytes, ops, t_sfu), evals, tested, live, t_sfu
 
     def b3_bound(self):
         b = self.binning.inst_gauss.numel()
@@ -387,6 +470,105 @@ def check_b1(frame: Frame, tag: str) -> float:
                                  f"{labels_equal}")
         worst = max(worst, *errs.values())
     return worst
+
+
+def check_b5(frame: Frame, tag: str) -> float:
+    """B5 against its plain version: image, T and best weight within 1e-5,
+    labels equal, the per-instance rows within 1e-5 and zero past the last
+    tile. Returns the max abs error."""
+    out, inst_w = frame.blend_vis()
+    ref, ref_w = frame.blend_vis_plain()
+    torch.cuda.synchronize()
+    errs = {k: float((getattr(out, k) - getattr(ref, k)).abs().max())
+            for k in ("rgb", "transmittance", "best_weight")}
+    errs["instance_rows"] = float((inst_w - ref_w).abs().max())
+    labels_equal = bool(torch.equal(out.label, ref.label))
+    tight = int(frame.binning.num_instances)
+    tail_zero = not bool(inst_w[tight:].any())
+    log({"check": "B5 blend_tiles_vis vs plain", "frame": tag,
+         "max_abs_err": errs,
+         "label_mismatches": int((out.label != ref.label).sum()),
+         "rows": inst_w.numel(), "rows_past_last_tile": inst_w.numel() - tight,
+         "rows_past_last_tile_zero": tail_zero,
+         "rows_at_or_over_threshold": int(
+             (inst_w >= VISIBILITY_THRESHOLD).sum())})
+    if max(errs.values()) > 1e-5 or not labels_equal or not tail_zero:
+        raise AssertionError(f"B5 differs from its plain version: {errs}, "
+                             f"labels equal {labels_equal}, rows past the "
+                             f"last tile zero {tail_zero}")
+    return max(errs.values())
+
+
+def wall_and_hidden_arrays():
+    """(means, log_scales, quats, opacities, sh) of a near-opaque wall of 64
+    splats at z=0 that hides one gaussian at z=1 from cameras at z=-2
+    (tests/test_vote_visible.py's scene); gaussian 64 is the hidden one."""
+    xs = np.linspace(-0.8, 0.8, 8)
+    wx, wy = np.meshgrid(xs, xs)
+    wall = np.stack([wx.ravel(), wy.ravel(), np.zeros(64)], -1)
+    means = np.concatenate([wall, [[0.0, 0.0, 1.0]]])
+    quats = np.zeros((65, 4))
+    quats[:, 0] = 1.0
+    colors = np.concatenate([np.tile([[1.0, 0, 0]], (64, 1)), [[0, 1.0, 0]]])
+    return (means, np.full((65, 3), np.log(0.18)), quats, np.full((65,), 9.0),
+            color_to_dc(colors)[:, None, :])
+
+
+def wall_and_hidden_scene():
+    return scene_from_numpy(*wall_and_hidden_arrays(), device="cpu")
+
+
+def check_small_labeling(device) -> None:
+    """Both votes on the card against the CPU. Center labels and votes are
+    exactly equal (the same f32 operations); the visibility weights agree
+    within 1e-5, and visible labels are equal but for gaussians whose
+    weight in some view lies within 1e-5 of the threshold (at most 1%),
+    where the card's and the host's exp may differ."""
+    wall_cams = [look_at_camera((x, 0, -2.0), (0, 0, 0), width=64, height=64)
+                 for x in (0.0, 0.1)]
+    rng = np.random.default_rng(0)
+    cases = [
+        ("wall and hidden, 2 views 64x64", wall_and_hidden_scene(),
+         wall_cams, np.full((2, 64, 64), 3, np.int32), 5),
+        ("random 2000, 6 views 128x96",
+         random_scene(2000, seed=21, num_labels=6, device="cpu"),
+         orbit_cameras(6, 3.0, width=128, img_height=96),
+         rng.integers(-1, 6, size=(6, 48, 64)).astype(np.int32),
+         LABEL_CLASSES)]
+    cpu = torch.device("cpu")
+    for name, scene, cams, seg, nc in cases:
+        got = []
+        for dev in (device, cpu):
+            center, votes = vote.assign_labels(
+                scene, cams, seg, num_classes=nc, return_votes=True,
+                device=dev)
+            visible = vote.assign_labels_visible(
+                scene, cams, seg, num_classes=nc, device=dev)
+            got.append((center.cpu(), votes.cpu(), visible.cpu()))
+        weights = [torch.stack([render(scene, c, CFG, impl="pallas_vis",
+                                       device=dev)["gaussian_weight"].cpu()
+                                for c in cams]) for dev in (device, cpu)]
+        band = ((weights[1] - VISIBILITY_THRESHOLD).abs() <= 1e-5).any(0)
+        (cc, vc, sc), (ch, vh, sh) = got
+        res = {"center_equal": bool(torch.equal(cc, ch)),
+               "votes_equal": bool(torch.equal(vc, vh)),
+               "weight_max_abs_err": float(
+                   (weights[0] - weights[1]).abs().max()),
+               "visible_equal_off_band": bool(torch.equal(sc[~band],
+                                                          sh[~band])),
+               "threshold_band": int(band.sum()),
+               "visible_labeled": float((sh >= 0).float().mean())}
+        if name.startswith("wall"):
+            res["hidden"] = {"center": int(cc[64]), "visible": int(sc[64])}
+            res["hidden_ok"] = int(cc[64]) == 3 and int(sc[64]) == UNLABELED
+        log({"check": "label votes card vs CPU", "scene": name, **res})
+        if not (res["center_equal"] and res["votes_equal"]
+                and res["weight_max_abs_err"] <= 1e-5
+                and res["visible_equal_off_band"]
+                and res["threshold_band"] <= 0.01 * scene.num_gaussians
+                and res.get("hidden_ok", True)):
+            raise AssertionError(f"card votes differ from CPU on {name}: "
+                                 f"{res}")
 
 
 def check_small_render(device) -> None:
@@ -488,18 +670,18 @@ def check_gradients(device) -> None:
         raise AssertionError(f"card gradients differ from CPU: {errs}")
 
 
+WRAPPERS = (tiles.enum_keys, blend.blend_tiles_fwd, blend.blend_tiles_bwd,
+            blend.cumsum_rows, blend.blend_tiles_vis)
+
+
 def reset_launches() -> None:
-    for fn in (tiles.enum_keys, blend.blend_tiles_fwd, blend.blend_tiles_bwd,
-               blend.cumsum_rows):
+    for fn in WRAPPERS:
         fn.launches = 0
 
 
 def read_launches() -> dict:
     torch.cuda.synchronize()
-    return {"enum_keys": tiles.enum_keys.launches,
-            "blend_tiles_fwd": blend.blend_tiles_fwd.launches,
-            "blend_tiles_bwd": blend.blend_tiles_bwd.launches,
-            "cumsum_rows": blend.cumsum_rows.launches}
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
 def train_main_path(scene, device):
@@ -572,7 +754,9 @@ def train_main_path(scene, device):
          "num_dropped": dropped, "finite": finite, "launches": launches,
          "wall_s": wall, "ms_per_step": wall / TRAIN_STEPS * 1e3})
     want = TRAIN_STEPS * TRAIN_VIEWS
-    for name, count in launches.items():
+    for name in ("enum_keys", "blend_tiles_fwd", "blend_tiles_bwd",
+                 "cumsum_rows"):
+        count = launches[name]
         if count != want:
             raise AssertionError(f"{name} launched {count} times in "
                                  f"{TRAIN_STEPS} steps of {TRAIN_VIEWS} "
@@ -635,7 +819,175 @@ def time_train_step(state, labels, cam, target, device, card):
     return row, peak
 
 
-def main() -> int:
+def slab_labels(means: torch.Tensor) -> torch.Tensor:
+    """[N] i32: the index of each gaussian's slab among LABEL_SLABS equal
+    slabs of the scene's x extent."""
+    x = means[:, 0]
+    lo, hi = x.min(), x.max()
+    slab = ((x - lo) / (hi - lo) * LABEL_SLABS).to(torch.int64)
+    return slab.clamp(max=LABEL_SLABS - 1).to(torch.int32)
+
+
+def write_label_inputs(scene, cams, out_dir: Path, seg_size, device
+                       ) -> np.ndarray:
+    """The labeler's inputs in ``out_dir``: the scene as PLY without labels,
+    ``cameras.json``, and per view ``{img_name}_seg.npy``: the port's own
+    label map of the slab-labeled scene, nearest-resized to ``seg_size``
+    (width, height). Returns the slab labels."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    scene_to_ply(str(out_dir / "scene.ply"), scene, with_label=False)
+    save_cameras(str(out_dir / "cameras.json"), cams)
+    slabs = slab_labels(scene.means)
+    labeled = dataclasses.replace(scene, labels=slabs)
+    seg_w, seg_h = seg_size
+    for cam in cams:
+        label_map = render(labeled, cam, CFG, with_labels=True,
+                           device=device)["label_map"].cpu().numpy()
+        np.save(out_dir / f"{cam.img_name}_seg.npy",
+                _nearest_resize(label_map, seg_h, seg_w))
+    return slabs.cpu().numpy()
+
+
+def run_label_cli(in_dir: Path, mode: str, device) -> tuple:
+    """``gsplat_tpu_torch.cli.label`` with the npy source over ``in_dir``'s
+    inputs; returns the labels of the PLY it wrote and its wall seconds."""
+    out = f"labeled_{mode}.ply"
+    t0 = time.perf_counter()
+    rc = label_cli.main([
+        "--ply_file", str(in_dir / "scene.ply"),
+        "--camera_file", str(in_dir / "cameras.json"),
+        "--input_dir", str(in_dir), "--output_dir", str(in_dir),
+        "--output_file", out, "--model", "npy",
+        "--num_classes", str(LABEL_CLASSES), "--mode", mode,
+        "--visibility_threshold", str(VISIBILITY_THRESHOLD),
+        "--device", str(device)])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"label CLI ({mode}) returned {rc}")
+    labels = read_ply(str(in_dir / out))["vertex"]["label"]
+    return labels.astype(np.int32), wall
+
+
+def agreement(labels: np.ndarray, slabs: np.ndarray) -> dict:
+    """The share of gaussians labeled, and the share of those whose label
+    is their slab."""
+    lab = labels != UNLABELED
+    agree = float((labels[lab] == slabs[lab]).mean()) if lab.any() else 0.0
+    return {"labeled_share": float(lab.mean()), "agreement": agree}
+
+
+def label_main_path(scene, device, card):
+    """Phase L: the label CLI over 311 views of the 2M scene in both modes,
+    then the visibility pass and the vote timed alone."""
+    in_dir = REPO / "build" / "chip_smoke" / "label"
+    cams = orbit_cameras(LABEL_VIEWS, 3.0, width=WIDTH, img_height=HEIGHT)
+    try:
+        t0 = time.perf_counter()
+        slabs = write_label_inputs(scene, cams, in_dir, SEG_SIZE, device)
+        log({"phase": "label inputs", "views": LABEL_VIEWS,
+             "seg_size": SEG_SIZE, "seconds": time.perf_counter() - t0,
+             "bytes": sum(f.stat().st_size for f in in_dir.iterdir())})
+        runs = {}
+        for mode in ("visible", "center"):
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            labels, wall = run_label_cli(in_dir, mode, device)
+            runs[mode] = dict(
+                agreement(labels, slabs), wall_s=wall,
+                labels_in_range=bool(((labels >= UNLABELED)
+                                      & (labels < LABEL_SLABS)).all()),
+                launches=read_launches(),
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+            log({"phase": "label main path", "mode": mode,
+                 "gaussians": scene.num_gaussians, "views": LABEL_VIEWS,
+                 "classes": LABEL_CLASSES, **runs[mode], "card": card})
+
+        # the visibility pass and the two votes alone (CUDA events; the
+        # pass holds one host sync per view, so this is its wall time)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        vis = vote.visibility_masks(scene, cams,
+                                    visibility_threshold=VISIBILITY_THRESHOLD,
+                                    device=device)
+        end.record()
+        end.synchronize()
+        times = {"visibility_pass_ms": start.elapsed_time(end)}
+        seg = torch.as_tensor(np.stack([
+            np.load(in_dir / f"{c.img_name}_seg.npy") for c in cams]),
+            device=device)
+        cams_t = vote._camera_tensors(cams, device)
+        for name, mask in (("center_vote_ms", None), ("visible_vote_ms", vis)):
+            times[name], _ = cuda_ms(
+                lambda: vote._vote_histogram(scene.means, cams_t, seg,
+                                             LABEL_CLASSES, vis=mask),
+                reps=3, warmup=1)
+        per_view = {k.replace("_ms", "_ms_per_view"): v / LABEL_VIEWS
+                    for k, v in times.items()}
+        log({"measure": "labeling", "views": LABEL_VIEWS,
+             "gaussians": scene.num_gaussians, **times, **per_view,
+             "visible_pairs": int(vis.sum()), "card": card})
+    finally:
+        shutil.rmtree(in_dir, ignore_errors=True)
+    vis_run, center_run = runs["visible"], runs["center"]
+    if not (vis_run["labels_in_range"] and center_run["labels_in_range"]):
+        raise AssertionError("labels out of [-1, 16)")
+    b5 = (vis_run["launches"]["blend_tiles_vis"],
+          center_run["launches"]["blend_tiles_vis"])
+    if b5 != (LABEL_VIEWS, 0):
+        raise AssertionError(f"B5 launched {b5} times in the visible and "
+                             f"center runs of {LABEL_VIEWS} views")
+    if not (vis_run["agreement"] > center_run["agreement"]
+            and vis_run["agreement"] > LABEL_AGREEMENT_BAR):
+        raise AssertionError(
+            f"visible vote agrees with the slabs on {vis_run['agreement']}, "
+            f"center vote on {center_run['agreement']}, bar "
+            f"{LABEL_AGREEMENT_BAR}")
+    return vis_run["launches"], {**times, **per_view}
+
+
+def rehearse(views: int, reduce: int) -> int:
+    """Phase L at reduced size on the CPU, where the kernel wrappers take
+    their plain versions: the 2M scene with ``reduce`` times fewer
+    gaussians, each sqrt(reduce) times larger, so the optical depth (N times
+    the squared scale) stays; a quarter of the frame's width and height, so
+    ``reduce`` 16 also keeps each gaussian's size in pixels. Prints one JSON
+    line per mode with the labeled share and the agreement with the
+    slabs."""
+    width, height = WIDTH // 4, HEIGHT // 4
+    grow = reduce ** 0.5
+    scene = random_scene(2_000_000 // reduce, seed=0, extent=1.5,
+                         scale_range=(0.002 * grow, 0.008 * grow),
+                         num_labels=16, device="cpu")
+    cams = orbit_cameras(views, 3.0, width=width, img_height=height)
+    in_dir = REPO / "build" / "label_rehearsal"
+    try:
+        slabs = write_label_inputs(scene, cams, in_dir,
+                                   (width // 2, height // 2), "cpu")
+        for mode in ("visible", "center"):
+            labels, wall = run_label_cli(in_dir, mode, "cpu")
+            log({"rehearsal": mode, "reduce": reduce,
+                 "gaussians": scene.num_gaussians, "views": views,
+                 "frame": [width, height], **agreement(labels, slabs),
+                 "wall_s_cpu": wall})
+    finally:
+        shutil.rmtree(in_dir, ignore_errors=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Drive the PyTorch/CUDA port on one card.")
+    ap.add_argument("--rehearse", action="store_true",
+                    help="run phase L at reduced size on the CPU instead")
+    ap.add_argument("--views", type=int, default=64,
+                    help="views of the rehearsal")
+    ap.add_argument("--reduce", type=int, default=100,
+                    help="the rehearsal's cut of the 2M scene")
+    args = ap.parse_args(argv)
+    if args.rehearse:
+        return rehearse(args.views, args.reduce)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -675,6 +1027,8 @@ def main() -> int:
                              "JAX binning's")
     check_small_render(device)
     check_gradients(device)
+    err_b5 = check_b5(bench, "bench")
+    check_small_labeling(device)
 
     # 3. serving path: 2M gaussians through PLY, 8 views, with labels
     t0 = time.perf_counter()
@@ -729,7 +1083,11 @@ def main() -> int:
     err_b1 = max(err_b1, check_b1(big, "2M view 0"))
     err_b2 = max(err_b2, check_b2(big, "2M view 0"))
     err_b3 = check_b3(big, "2M view 0")
+    err_b5 = max(err_b5, check_b5(big, "2M view 0"))
     log({"main_frame_counts": big.instance_counts()})
+
+    # L. labeling path: the label CLI over 311 views of the 2M scene
+    label_launches, label_times = label_main_path(scene, device, card)
 
     # 4. training path: adaptive multiview steps at 2M, one densify
     train_launches, state, labels, train_cams, targets = train_main_path(
@@ -740,7 +1098,8 @@ def main() -> int:
 
     # 5. times
     results = {}
-    for tag, fr, plain_reps in (("bench", bench, 10), ("2M view 0", big, 3)):
+    for tag, fr, plain_reps, b5_reps in (("bench", bench, 10, 10),
+                                         ("2M view 0", big, 3, 2)):
         torch.cuda.reset_peak_memory_stats()
         row = {}
         for stage, fn in (("project", fr.project), ("B4 enum_keys",
@@ -757,17 +1116,22 @@ def main() -> int:
         for stage, fn in (("B2 blend_tiles_bwd", fr.blend_bwd),
                           ("fold", lambda: fr.fold(drows)),
                           ("B3 cumsum_rows", lambda: blend.cumsum_rows(rows)),
-                          ("torch.cumsum", lambda: torch.cumsum(rows, 0))):
+                          ("torch.cumsum", lambda: torch.cumsum(rows, 0)),
+                          ("B5 blend_tiles_vis", fr.blend_vis)):
             ms, runs = cuda_ms(fn)
             row[stage] = ms
             log({"measure": stage, "frame": tag, "ms": ms, "runs_ms": runs,
                  "card": card})
-        for stage, fn, reps in (("B4 plain", fr.enum_keys_plain, 10),
-                                ("B1 plain", fr.blend_plain, plain_reps),
-                                ("B2 plain", fr.blend_bwd_plain, plain_reps),
-                                ("B3 plain", lambda: blend._cumsum_rows_plain(
-                                    rows), 10)):
-            ms, runs = cuda_ms(fn, reps=reps, warmup=1)
+        # the plain B5 at 2M evaluates all 2.5 G pairs: 2 runs, no warm-up
+        # (check_b5 ran it)
+        for stage, fn, reps, warmup in (
+                ("B4 plain", fr.enum_keys_plain, 10, 1),
+                ("B1 plain", fr.blend_plain, plain_reps, 1),
+                ("B2 plain", fr.blend_bwd_plain, plain_reps, 1),
+                ("B3 plain", lambda: blend._cumsum_rows_plain(rows), 10, 1),
+                ("B5 plain", fr.blend_vis_plain, b5_reps,
+                 int(b5_reps > 2))):
+            ms, runs = cuda_ms(fn, reps=reps, warmup=warmup)
             row[stage] = ms
             log({"measure": stage, "frame": tag, "ms": ms, "runs_ms": runs,
                  "card": card})
@@ -775,9 +1139,10 @@ def main() -> int:
             row[s] for s in ("project", "B4 enum_keys", "sort",
                              "B1 blend_tiles_fwd"))
         b4 = fr.b4_bound()
-        b1, evals, live, t_sfu = fr.b1_bound(sfu)
-        b2, _, _, _ = fr.b2_bound(sfu)
+        b1, evals, tested, live, t_sfu = fr.b1_bound(sfu)
+        b2, _, _, _, _ = fr.b2_bound(sfu)
         b3 = fr.b3_bound()
+        b5, evals5, tested5, live5, t_sfu5 = fr.b5_bound(sfu)
         log({"measure": "render peak memory", "frame": tag,
              "max_memory_allocated_bytes": peak, "card": card})
         log({"measure": "bounds", "frame": tag,
@@ -785,7 +1150,7 @@ def main() -> int:
                     "ops": b4[3]},
              "B1": {"bound_ms": b1[0], "bound_by": b1[1], "bytes": b1[2],
                     "ops": b1[3], "evaluated_pairs": evals,
-                    "live_pairs": live,
+                    "tested_pairs": tested, "live_pairs": live,
                     "all_pairs": int(fr.counts.sum()) * RC.tile_size ** 2,
                     "f32_ms": b1[3] / F32_FLOPS * 1e3, "exp_ms": t_sfu,
                     "exp_per_s": sfu},
@@ -794,11 +1159,17 @@ def main() -> int:
                     "exp_ms": t_sfu},
              "B3": {"bound_ms": b3[0], "bound_by": b3[1], "bytes": b3[2],
                     "ops": b3[3]},
+             "B5": {"bound_ms": b5[0], "bound_by": b5[1], "bytes": b5[2],
+                    "ops": b5[3], "evaluated_pairs": evals5,
+                    "tested_pairs": tested5, "live_pairs": live5,
+                    "f32_ms": b5[3] / F32_FLOPS * 1e3,
+                    "exp_ms": t_sfu5},
              "glue_ms": row["glue"], "card": card})
-        results[tag] = (row, b4, b1, b2, b3)
+        results[tag] = (row, b4, b1, b2, b3, b5)
 
-    row, b4, b1, b2, b3 = results["2M view 0"]
-    by_path = {k: {"render": launches[k], "train": train_launches[k]}
+    row, b4, b1, b2, b3, b5 = results["2M view 0"]
+    by_path = {k: {"render": launches[k], "train": train_launches[k],
+                   "label": label_launches[k]}
                for k in launches}
     kernels = [
         {"name": "enum_keys", "route": "cuda",
@@ -827,15 +1198,25 @@ def main() -> int:
          "ms": row["B3 cumsum_rows"], "plain_ms": row["B3 plain"],
          "bound_ms": b3[0], "bound_by": b3[1],
          "library_ms": row["torch.cumsum"]},
+        {"name": "blend_tiles_vis", "route": "cuda",
+         "source": "gsplat_tpu_torch/csrc/blend_vis.cu",
+         "replaces": "gsplat_tpu/render/blend_pallas.py:250",
+         "launches": label_launches["blend_tiles_vis"],
+         "max_abs_err": err_b5, "ms": row["B5 blend_tiles_vis"],
+         "plain_ms": row["B5 plain"], "bound_ms": b5[0], "bound_by": b5[1],
+         "library_ms": None},
     ]
     # "launches" counts each kernel on the path that brought it: the 8-view
-    # render for B4 and B1, the 10 training steps for B2 and B3; both
-    # counts are in launches_by_path. No single PyTorch call computes B4,
-    # B1 or B2, hence no library time; B3's is torch.cumsum.
+    # render for B4 and B1, the 10 training steps for B2 and B3, the
+    # visible-mode label run of 311 views for B5; every path's counts are in
+    # launches_by_path. No single PyTorch call computes B4, B1, B2 or B5
+    # (B5's segment max onto gaussians is a scatter_reduce outside the
+    # kernel), hence no library time; B3's is torch.cumsum.
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
     log({"measure": "train step breakdown", "ms": train_row,
          "max_memory_allocated_bytes": train_peak, "card": card})
+    log({"measure": "labeling breakdown", "ms": label_times, "card": card})
     log(card)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

@@ -3,10 +3,11 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, which ``ctypes`` loads; no source includes
 PyTorch's headers, so a build takes seconds. Libraries go to
-``build/torch_kernels/`` at the repo root, named by a hash of the source and
-the flags, and are built at first use, never at import: importing the package
-does not need ``nvcc``. :func:`build` compiles every missing library with one
-``nvcc`` process per source, all started together.
+``build/torch_kernels/`` at the repo root, named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, and are built at first use,
+never at import: importing the package does not need ``nvcc``. :func:`build`
+compiles every missing library with one ``nvcc`` process per source, all
+started together.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on anything but 0, so a launch
@@ -50,6 +51,9 @@ SIGNATURES = {
                   [_P] * 3 + [_I] * 6 + [_F] * 3 + [_P] * 4 + [_I]
                   + [_P] * 2),
     "cumsum_rows": ("gsplat_cumsum_rows", [_P, _I, _P, _I, _P, _P]),
+    "blend_vis": ("gsplat_blend_vis",
+                  [_P] * 3 + [_I] * 6 + [_F] * 2 + [_I] + [_P] * 5
+                  + [_I, _P]),
 }
 
 _functions: Dict[str, ctypes._CFuncPtr] = {}
@@ -72,7 +76,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

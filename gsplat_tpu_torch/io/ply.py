@@ -209,3 +209,26 @@ def scene_to_ply(
     if with_label:
         arr["label"] = s["labels"]
     write_ply(path, {"vertex": arr}, binary=binary)
+
+
+def add_labels_to_ply(
+    src_path: str, dst_path: str, labels, *, binary: bool = True
+) -> None:
+    """Round-trip an existing PLY adding/overwriting a ``label:i4`` property,
+    preserving all other vertex properties (deep_learning_segmentation.py:
+    311-332). ``labels`` is an [N] array or tensor."""
+    if hasattr(labels, "cpu"):
+        labels = labels.cpu().numpy()
+    elements = read_ply(src_path)
+    v = elements["vertex"]
+    labels = np.asarray(labels, dtype=np.int32)
+    if len(labels) != len(v):
+        raise ValueError(f"labels ({len(labels)}) != vertices ({len(v)})")
+    base = [p for p in v.dtype.names if p != "label"]
+    dtype = np.dtype([(p, v.dtype[p]) for p in base] + [("label", "i4")])
+    out = np.zeros(len(v), dtype=dtype)
+    for p in base:
+        out[p] = v[p]
+    out["label"] = labels
+    elements["vertex"] = out
+    write_ply(dst_path, elements, binary=binary)

@@ -9,6 +9,8 @@ kernels or their plain versions run. The blend is one
 the counterpart of ``blend_scene_windows`` and its custom VJP): forward
 kernel B1, backward kernel B2 and the gradient fold over kernel B3.
 Projection and SH are plain torch, and autograd derives their VJP.
+``render(impl="pallas_vis")`` is the labeler's visibility render over kernel
+B5 (:func:`_render_vis_impl`).
 """
 
 from __future__ import annotations
@@ -176,6 +178,50 @@ def _render_impl(scene: GaussianScene, cam: CameraParams,
     return result
 
 
+def gaussian_weights(inst_weight: torch.Tensor, inst_gauss: torch.Tensor,
+                     num_gaussians: int) -> torch.Tensor:
+    """[N] per-gaussian visibility weight: the segment max of kernel B5's
+    per-instance rows onto original gaussian order (0 for a gaussian with
+    no instance). The JAX package does this max outside its kernel too
+    (``gsplat_tpu/render/api.py:282-284``); max is order-free, so the
+    scatter is exact in any order."""
+    gw = inst_weight.new_zeros(num_gaussians)
+    return gw.scatter_reduce_(0, inst_gauss.long(), inst_weight, "amax")
+
+
+@torch.no_grad()
+def _render_vis_impl(scene: GaussianScene, cam: CameraParams,
+                     background: torch.Tensor, *, width: int, height: int,
+                     cfg: Config, with_labels: bool
+                     ) -> Dict[str, torch.Tensor]:
+    """Forward render that also returns per-gaussian visibility weights
+    (max blend weight over any pixel of the gaussian's tiles), the evidence
+    of the occlusion-aware vote. No early stop (kernel B5 has none, as the
+    JAX kernel has none). Not differentiable."""
+    rc = cfg.raster
+    proj = project(scene, cam, width, height, rc,
+                   z_near=cfg.camera.z_near, z_far=cfg.camera.z_far)
+    tiles_x, tiles_y = tile_grid(width, height, rc.tile_size)
+    binning = bin_tiles(proj, tiles_x=tiles_x, tiles_y=tiles_y,
+                        tile_size=rc.tile_size)
+    ptab = pack_table(proj, scene.labels)
+    out, inst_w = blend.blend_tiles_vis(
+        ptab, binning.inst_gauss, binning.tile_bounds, tiles_x=tiles_x,
+        tiles_y=tiles_y, tile_size=rc.tile_size, width=width, height=height,
+        chunk=cfg.tiles.chunk, alpha_min=rc.alpha_min,
+        alpha_max=rc.alpha_max, with_labels=with_labels)
+    transmit = out.transmittance
+    result = dict(image=out.rgb + transmit[..., None] * background,
+                  alpha=1.0 - transmit, transmittance=transmit,
+                  gaussian_weight=gaussian_weights(
+                      inst_w, binning.inst_gauss, scene.num_gaussians),
+                  num_dropped=binning.num_dropped)
+    if with_labels:
+        result["best_weight"] = out.best_weight
+        result["label_map"] = out.label
+    return result
+
+
 def render(
     scene: GaussianScene,
     camera: Camera,
@@ -192,7 +238,9 @@ def render(
     """Render a scene from a camera on ``device`` (the card by default; the
     scene moves there if it lies elsewhere).
 
-    ``impl='pallas'`` is the tiled kernel path (the name is the JAX one).
+    ``impl='pallas'`` is the tiled kernel path (the name is the JAX one);
+    ``impl='pallas_vis'`` the visibility render of the occlusion-aware vote
+    (kernel B5, no early stop), which adds ``gaussian_weight`` [N].
     ``budget``, ``kernel_budget`` and ``num_windows`` are accepted and
     ignored: the port sizes its buffers from the exact instance count, so
     ``num_dropped`` is always 0."""
@@ -201,11 +249,7 @@ def render(
         raise NotImplementedError(
             "impl='dense' (the dense oracle path, render/blend_xla.py) comes "
             "with the port's dense-path slice")
-    if impl == "pallas_vis":
-        raise NotImplementedError(
-            "impl='pallas_vis' (the visibility blend, kernel B5) comes with "
-            "the port's labeling slice")
-    if impl != "pallas":
+    if impl not in ("pallas", "pallas_vis"):
         raise ValueError(f"unknown impl {impl!r}")
     device = resolve_device(device)
     scene = scene.to(device)
@@ -213,6 +257,7 @@ def render(
         background = cfg.raster.background
     background = torch.as_tensor(background, dtype=torch.float32,
                                  device=device)
-    return _render_impl(scene, CameraParams.from_camera(camera, device),
-                        background, width=camera.width, height=camera.height,
-                        cfg=cfg, with_labels=with_labels)
+    impl_fn = _render_vis_impl if impl == "pallas_vis" else _render_impl
+    return impl_fn(scene, CameraParams.from_camera(camera, device),
+                   background, width=camera.width, height=camera.height,
+                   cfg=cfg, with_labels=with_labels)

@@ -1,6 +1,8 @@
 """Tile blend: front-to-back alpha compositing of the sorted instance stream,
 with the optional best-weight label channel (kernel B1), its backward
-(kernel B2) and the row prefix sum of the gradient fold (kernel B3).
+(kernel B2), the row prefix sum of the gradient fold (kernel B3) and the
+visibility blend of the occlusion-aware vote (kernel B5: B1 with no early
+stop, plus each instance's max blend weight).
 
 Counterpart of ``gsplat_tpu.render.blend_pallas``. The JAX package walks
 8-aligned windows of a materialised [B, 128] parameter array and writes
@@ -90,6 +92,20 @@ def _blend_tiles_fwd_plain(ptab, inst_gauss, tile_bounds, *, tiles_x,
     vectorized over tiles and pixels, in the kernel's operation order (each
     tile composites its l-th instance at step l), so on the card the two
     agree bit for bit wherever exp does."""
+    out, _ = _blend_plain(ptab, inst_gauss, tile_bounds, tiles_x=tiles_x,
+                          tiles_y=tiles_y, tile_size=tile_size, width=width,
+                          height=height, chunk=chunk, alpha_min=alpha_min,
+                          alpha_max=alpha_max, early_eps=early_eps,
+                          with_labels=with_labels, inst_max=False)
+    return out
+
+
+def _blend_plain(ptab, inst_gauss, tile_bounds, *, tiles_x, tiles_y,
+                 tile_size, width, height, chunk, alpha_min, alpha_max,
+                 early_eps, with_labels, inst_max):
+    """The forward recurrence of B1 and B5. With ``inst_max`` it also
+    returns each instance's max blend weight over all pixels of its tile
+    (those past the image edge included), [B] f32, 0 past the last tile."""
     dev = ptab.device
     num_tiles = tiles_x * tiles_y
     npix = tile_size * tile_size
@@ -109,10 +125,13 @@ def _blend_tiles_fwd_plain(ptab, inst_gauss, tile_bounds, *, tiles_x,
                        device=dev)
     alive = torch.ones(num_tiles, dtype=torch.bool, device=dev)
     last = max(inst_gauss.shape[0] - 1, 0)
+    inst_w = (torch.zeros(inst_gauss.shape[0], device=dev) if inst_max
+              else None)
     for step in range(steps):
         if step % chunk == 0:
             alive = alive & (trans.amax(dim=1) >= early_eps)
-        live = (alive & (step < cnt))[:, None]
+        run = alive & (step < cnt)
+        live = run[:, None]
         g = inst_gauss[torch.clamp(start + step, max=last)].long()
         row = ptab[g]                                          # [T, 16]
         mx = (row[:, P_MX] - x0f)[:, None]
@@ -132,13 +151,15 @@ def _blend_tiles_fwd_plain(ptab, inst_gauss, tile_bounds, *, tiles_x,
             best_w = torch.where(better, w, best_w)
             lab = torch.round(row[:, P_LABEL]).to(torch.int32)[:, None]
             label = torch.where(better, lab, label)
+        if inst_max:
+            inst_w[(start + step)[run]] = w.amax(dim=1)[run]
         trans = trans * (1.0 - alpha)
     to_img = lambda x: _tiles_to_image(x, tiles_x, tiles_y, tile_size,
                                        width, height)
     return BlendOutput(
         rgb=to_img(rgb).contiguous(), transmittance=to_img(trans[:, None])[..., 0],
         best_weight=to_img(best_w[:, None])[..., 0] if with_labels else None,
-        label=to_img(label[:, None])[..., 0] if with_labels else None)
+        label=to_img(label[:, None])[..., 0] if with_labels else None), inst_w
 
 
 def blend_tiles_fwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
@@ -152,8 +173,9 @@ def blend_tiles_fwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
 
     Replaces ``gsplat_tpu/render/blend_pallas.py::_fwd_win_kernel``. On the
     card it launches ``csrc/blend_fwd.cu`` (one 256-thread block per tile,
-    batches of ``chunk`` instances staged in shared memory; bound by the
-    exp and f32 operations of every instance-pixel pair); CPU tensors take
+    batches of ``chunk`` instances staged in shared memory; it spends an exp
+    and f32 operations on every instance-pixel pair of a batch that runs,
+    where only the pairs past the alpha cut need the exp); CPU tensors take
     the plain version."""
     _check_stream("blend_tiles_fwd", ptab, inst_gauss, tile_bounds,
                   tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
@@ -185,6 +207,68 @@ def blend_tiles_fwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
 
 
 blend_tiles_fwd.launches = 0
+
+
+def _blend_tiles_vis_plain(ptab, inst_gauss, tile_bounds, *, tiles_x,
+                           tiles_y, tile_size, width, height, chunk,
+                           alpha_min, alpha_max, with_labels):
+    """Plain PyTorch version of kernel B5: B1's plain recurrence with no
+    early stop, plus each instance's max blend weight over its tile."""
+    return _blend_plain(ptab, inst_gauss, tile_bounds, tiles_x=tiles_x,
+                        tiles_y=tiles_y, tile_size=tile_size, width=width,
+                        height=height, chunk=chunk, alpha_min=alpha_min,
+                        alpha_max=alpha_max, early_eps=0.0,
+                        with_labels=with_labels, inst_max=True)
+
+
+def blend_tiles_vis(ptab: torch.Tensor, inst_gauss: torch.Tensor,
+                    tile_bounds: torch.Tensor, *, tiles_x: int, tiles_y: int,
+                    tile_size: int, width: int, height: int, chunk: int,
+                    alpha_min: float, alpha_max: float, with_labels: bool
+                    ) -> tuple[BlendOutput, torch.Tensor]:
+    """Kernel B5 wrapper: B1's blend of the sorted stream with no early
+    stop, and each instance's max blend weight ``w = T * alpha`` over all
+    tile_size^2 pixels of its tile, [B] f32 in sorted-stream order (0 for
+    filtered slots past the last tile). Not differentiable.
+
+    Replaces ``gsplat_tpu/render/blend_pallas.py::_fwd_win_vis_kernel``. On
+    the card it launches ``csrc/blend_vis.cu`` (B1's design: one 256-thread
+    block per tile, batches of ``chunk`` instances staged in shared memory;
+    per instance a warp max on the f32 bit pattern and a max over the 8
+    warps; it spends an exp and f32 operations on every instance-pixel pair,
+    none skipped, where only the pairs past the alpha cut need the exp); CPU
+    tensors take the plain version."""
+    _check_stream("blend_tiles_vis", ptab, inst_gauss, tile_bounds,
+                  tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
+                  width=width, height=height, chunk=chunk)
+    dev = ptab.device
+    kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
+              width=width, height=height, chunk=chunk, alpha_min=alpha_min,
+              alpha_max=alpha_max, with_labels=with_labels)
+    if dev.type == "cpu":
+        return _blend_tiles_vis_plain(ptab, inst_gauss, tile_bounds, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"blend_tiles_vis: no kernel for {dev}")
+    total = inst_gauss.shape[0]
+    rgb = torch.empty(height, width, 3, device=dev)
+    trans = torch.empty(height, width, device=dev)
+    best_w = torch.empty(height, width, device=dev) if with_labels else None
+    label = (torch.empty(height, width, dtype=torch.int32, device=dev)
+             if with_labels else None)
+    inst_w = torch.empty(total, device=dev)
+    fn = _kernels.function("blend_vis")
+    err = fn(ptab.data_ptr(), inst_gauss.data_ptr(), tile_bounds.data_ptr(),
+             tiles_x * tiles_y, tiles_x, tile_size, width, height, chunk,
+             alpha_min, alpha_max, int(with_labels), rgb.data_ptr(),
+             trans.data_ptr(), best_w.data_ptr() if with_labels else None,
+             label.data_ptr() if with_labels else None, inst_w.data_ptr(),
+             total, _kernels.stream(dev))
+    blend_tiles_vis.launches += 1
+    _kernels.check("blend_vis", err)
+    return BlendOutput(rgb, trans, best_w, label), inst_w
+
+
+blend_tiles_vis.launches = 0
 
 
 def _image_to_tiles(img: torch.Tensor, tiles_x: int, tiles_y: int,

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (B4 ``enum_keys``, B1 ``blend_tiles_fwd``, B2
-``blend_tiles_bwd``, B3 ``cumsum_rows``) and their wrappers.
+``blend_tiles_bwd``, B3 ``cumsum_rows``, B5 ``blend_tiles_vis``), their
+wrappers, and the vote on the card against the CPU.
 
 This file imports neither jax nor ``gsplat_tpu``, so on a machine with a card
 and only PyTorch it runs without the JAX harness of ``conftest.py``:
@@ -17,6 +18,7 @@ import torch
 from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.config import UNLABELED
 from gsplat_tpu_torch.io import cameras, synthetic
+from gsplat_tpu_torch.label import vote
 from gsplat_tpu_torch.models import trainer
 from gsplat_tpu_torch.render import api, blend, projection, tiles
 
@@ -140,6 +142,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                                  "tile_size": 64,
                                                  "width": 128,
                                                  "height": 128})
+
+
+def test_vis_wrapper_rejects_what_the_kernel_does_not_take():
+    proj = _diagonal_splat("cpu")
+    ptab = api.pack_table(proj, torch.zeros(1, dtype=torch.int32))
+    inst = torch.zeros(2, dtype=torch.int32)   # one live slot, one filtered
+    bounds = torch.tensor([0] * 5 + [1] * 8, dtype=torch.int32)
+    kw = dict(tiles_x=4, tiles_y=3, tile_size=32, width=100, height=70,
+              chunk=64, alpha_min=1 / 255, alpha_max=0.999, with_labels=True)
+    out, inst_w = blend.blend_tiles_vis(ptab, inst, bounds, **kw)
+    assert out.rgb.shape == (70, 100, 3) and out.label.shape == (70, 100)
+    assert inst_w.shape == (2,) and float(inst_w[1]) == 0.0
+    # the instance's max weight lies at the pixel next to its mean
+    assert abs(float(inst_w[0]) - float(out.best_weight.max())) < 1e-7
+    bad = [((ptab.double(), inst, bounds), {}),
+           ((ptab, inst.long(), bounds), {}),
+           ((ptab, inst, bounds[:-1]), {}),
+           ((ptab, inst, bounds), {"chunk": 0}),
+           ((ptab, inst, bounds), {"chunk": 2048}),
+           ((ptab, inst, bounds), {"width": 129}),
+           ((ptab, inst, bounds), {"tile_size": 64})]
+    for args, over in bad:
+        with pytest.raises(ValueError):
+            blend.blend_tiles_vis(*args, **{**kw, **over})
+    with pytest.raises(TypeError):
+        blend.blend_tiles_vis(ptab, inst, bounds, **kw, early_eps=1e-5)
 
 
 def test_backward_wrappers_reject_what_the_kernels_do_not_take():
@@ -354,3 +382,77 @@ def test_losses_on_card_match_cpu(card, name):
     (vc, gc), (vh, gh) = out["cuda"], out["cpu"]
     assert abs(vc - vh) <= 1e-5 * max(abs(vh), 1.0)
     assert float((gc - gh).abs().max() / gh.abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_size,chunk,width,height", [
+    (32, 64, 800, 608), (16, 128, 800, 608), (32, 64, 100, 70),
+    (16, 128, 100, 70)])
+def test_blend_vis_kernel_matches_plain(card, tile_size, chunk, width,
+                                        height):
+    scene, cam, proj, tx, ty = _card_frame(card, tile_size, width=width,
+                                           height=height)
+    b = tiles.bin_tiles(proj, tiles_x=tx, tiles_y=ty, tile_size=tile_size)
+    ptab = api.pack_table(proj, scene.labels)
+    kw = dict(tiles_x=tx, tiles_y=ty, tile_size=tile_size, width=width,
+              height=height, chunk=chunk, alpha_min=1 / 255,
+              alpha_max=0.999, with_labels=True)
+    before = blend.blend_tiles_vis.launches
+    out, inst_w = blend.blend_tiles_vis(ptab, b.inst_gauss, b.tile_bounds,
+                                        **kw)
+    ref, ref_w = blend._blend_tiles_vis_plain(ptab, b.inst_gauss,
+                                              b.tile_bounds, **kw)
+    torch.cuda.synchronize()
+    assert blend.blend_tiles_vis.launches == before + 1
+    # B1's operations in B1's order, and max is exact: 1e-5 is headroom
+    for k in ("rgb", "transmittance", "best_weight"):
+        err = (getattr(out, k) - getattr(ref, k)).abs().max().item()
+        assert err <= 1e-5, k
+    assert torch.equal(out.label, ref.label)
+    assert (inst_w - ref_w).abs().max().item() <= 1e-5
+    tight = int(b.num_instances)
+    assert tight < inst_w.numel() and not inst_w[tight:].any()
+    assert (inst_w[:tight] > 0.05).float().mean() > 0.1
+
+
+def _vote_inputs(device):
+    scene = synthetic.random_scene(3000, seed=41, extent=1.0,
+                                   scale_range=(0.01, 0.04), device=device)
+    cams = cameras.orbit_cameras(5, 3.0, height=0.3, width=160,
+                                 img_height=120)
+    seg = np.random.default_rng(0).integers(-1, 7, size=(5, 60, 80)).astype(
+        np.int32)
+    return scene, cams, seg
+
+
+@pytest.mark.gpu
+def test_assign_labels_on_card_match_cpu(card):
+    scene, cams, seg = _vote_inputs("cpu")
+    got, gv = vote.assign_labels(scene, cams, seg, num_classes=151,
+                                 return_votes=True, device=card)
+    want, wv = vote.assign_labels(scene, cams, seg, num_classes=151,
+                                  return_votes=True, device="cpu")
+    # +, -, *, / and the truncation round alike on both devices
+    assert torch.equal(gv.cpu(), wv) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_assign_labels_visible_on_card_match_cpu(card):
+    scene, cams, seg = _vote_inputs("cpu")
+    before = blend.blend_tiles_vis.launches
+    got = vote.assign_labels_visible(scene, cams, seg, num_classes=151,
+                                     device=card)
+    assert blend.blend_tiles_vis.launches == before + len(cams)
+    want = vote.assign_labels_visible(scene, cams, seg, num_classes=151,
+                                      device="cpu")
+    weights = {dev: torch.stack([
+        api.render(scene, c, impl="pallas_vis", device=dev)[
+            "gaussian_weight"].cpu() for c in cams]) for dev in (card, "cpu")}
+    # projection runs through the card's and the host's exp/log/sqrt, so the
+    # weights agree to float rounding and may fall on either side of the
+    # threshold only within 1e-5 of it: elsewhere the labels are equal
+    assert (weights[card] - weights["cpu"]).abs().max() <= 1e-5
+    band = ((weights["cpu"] - 0.05).abs() <= 1e-5).any(0)
+    assert band.float().mean() <= 0.01
+    assert torch.equal(got.cpu()[~band], want[~band])
+    assert (want >= 0).float().mean() > 0.1

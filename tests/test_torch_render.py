@@ -307,7 +307,7 @@ def test_default_device_is_the_card():
         tapi.render(scene, cam)
 
 
-@pytest.mark.parametrize("impl", ["dense", "pallas_vis"])
+@pytest.mark.parametrize("impl", ["dense"])
 def test_later_slices_raise(impl):
     scene = tsynthetic.random_scene(10, device=CPU)
     cam = tcameras.look_at_camera((0, 0, -3.0), (0, 0, 0), width=32,
