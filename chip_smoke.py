@@ -14,6 +14,14 @@ LABEL_AGREEMENT_BAR comes from. Phases (any failure stops the run):
 1. build every kernel from ``gsplat_tpu_torch/csrc`` (one nvcc per source,
    all at once) and print build seconds and ptxas' registers, shared memory
    and spills;
+P. the probes: ``python -m gsplat_tpu_torch.utils.roofline``'s path (the
+   card's f32 FMA and expf rates from kernels P1, and the bench frame's
+   SOL), then ``utils.scan_probe``'s check and bench (kernels P2); both P1
+   chains against their plain versions (relative 1e-5) on a small launch
+   and at the main path's, both scans against theirs and float64 cumprod /
+   cumsum (1e-5, 1e-3), the rounds against theirs at the bench's launch,
+   and the probes' times, plain and library times and bounds; the measured
+   rates then bound every kernel in phase 5, the data sheet's beside them;
 2. the repo's bench frame (100k gaussians, 800x608, ``bench.py``): each
    kernel against its plain PyTorch version (B4 keys exactly equal, B1 within
    1e-5 at early_stop_eps 0 and at the default, labels equal; B2 within 1e-4
@@ -31,6 +39,13 @@ LABEL_AGREEMENT_BAR comes from. Phases (any failure stops the run):
    against their plain versions on one of those frames, and B3 against a
    float64 prefix sum on that frame's gradient fold (within 1e-6 of each
    column's peak prefix);
+R. the offline render path at real size: ``gsplat_tpu_torch.cli.render``
+   over phase 3's PLY, the 8 views with label maps and a session that
+   hides label 3, displaces label 1 and recolours label 2; every PNG
+   decodes (zlib, here) to the render's uint8 image, label 3 is in no
+   label map, B4 and B1 launched once a view, the CLI's wall time; the 2M
+   scene through ``write_splat`` -> ``load_scene``; ``render(impl="dense")``
+   on the card against the tiled render (3,000 gaussians, 160x120);
 L. the labeling path at real size, through ``gsplat_tpu_torch.cli.label``:
    the 2M scene labeled in 16 slabs along x, 311 orbit views at 800x608,
    seg maps made from the port's own label maps at 400x304, the CLI run with
@@ -47,8 +62,8 @@ L. the labeling path at real size, through ``gsplat_tpu_torch.cli.label``:
    single-view ``make_train_step`` step timed and split into its stages;
 5. times on the card (CUDA events, median of 10 after warm-up) of
    projection, B4, the sort, B1, B2, B3, B5, ``torch.cumsum`` and the whole
-   render at both frames, the plain versions' times, bounds, and peak
-   device memory.
+   render at both frames, the plain versions' times, bounds (at the P1
+   rates and at the data sheet's), and peak device memory.
 
 The second-to-last line of stdout is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``.
@@ -61,9 +76,11 @@ import dataclasses
 import json
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -71,10 +88,14 @@ import torch
 
 from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.cli import label as label_cli
+from gsplat_tpu_torch.cli import render as render_cli
 from gsplat_tpu_torch.config import DEFAULT, UNLABELED
+from gsplat_tpu_torch.interact.edit import EditState, apply_edits
 from gsplat_tpu_torch.io.cameras import (look_at_camera, orbit_cameras,
                                          save_cameras)
-from gsplat_tpu_torch.io.ply import read_ply, scene_from_ply, scene_to_ply
+from gsplat_tpu_torch.io.ply import (load_scene, read_ply, scene_from_ply,
+                                     scene_to_ply)
+from gsplat_tpu_torch.io.splat_format import importance, write_splat
 from gsplat_tpu_torch.io.synthetic import random_scene
 from gsplat_tpu_torch.label import vote
 from gsplat_tpu_torch.label.adapters import _nearest_resize
@@ -85,7 +106,9 @@ from gsplat_tpu_torch.render.api import (_render_impl, enumeration_rows,
                                          render, segment_sums)
 from gsplat_tpu_torch.render.projection import (CameraParams, project,
                                                 tile_grid)
-from gsplat_tpu_torch.scene import color_to_dc, scene_from_numpy
+from gsplat_tpu_torch.scene import color_to_dc, dc_color, scene_from_numpy
+from gsplat_tpu_torch.utils import roofline, scan_probe
+from gsplat_tpu_torch.utils.roofline import B4_OPS_PER_SLOT, HBM_BYTES_PER_S
 
 REPO = Path(__file__).resolve().parent
 WIDTH, HEIGHT = 800, 608
@@ -93,37 +116,6 @@ WIDTH, HEIGHT = 800, 608
 # (gsplat_tpu.render.tiles) computes them on the CPU.
 BENCH_COUNTS = dict(valid=80157, tiles=475, slots=198762, tight=191177,
                     tile_max=595, tile_median=444)
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
-# outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-# The least work of the blend kernels B1, B2 and B5, as this run's data
-# needs it. The cut alpha >= alpha_min is a test of q alone (q <= the
-# gaussian's 2 ln(opacity / alpha_min)), so only the pairs past the cut need
-# an exp; the q test itself is needed only for the pixels inside each
-# instance's cutoff box (the projection's ex, ey half-extents, outside which
-# no alpha passes the cut). f32 operations per tested (instance, pixel)
-# pair: dx, dy (2), q (7) and the compare (1); per live pair (alpha past the
-# cut): -q/2, the opacity product and the clamp (3), and for B1 the weight
-# (1), RGB accumulation (6), the label test (1) and the T update (2)
-Q_TEST_OPS = 10
-ALPHA_OPS = 3
-B1_OPS_PER_LIVE = 10
-# exp2 results per clock per SM of the special-function units on compute
-# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction table);
-# expf issues one of them
-SFU_PER_CLOCK_PER_SM = 16
-# f32 operations per live (instance, pixel) pair of B2, counted from
-# csrc/blend_bwd.cu past the q test and alpha: the weight (1), c.dC (5), the
-# contribution and prefix (2), the suffix (1), 1 - alpha and the ratio (2),
-# dq with its clamp test (4), the dq.dx / dq.dy products (2), the six moment
-# sums (9), the colour sums (6) and the T update (1)
-B2_OPS_PER_LIVE = 33
-# f32 operations per bbox slot of B4: the rectangle test (4 edge minima of
-# 11 operations, 4 offsets, 4 compares, 2 floors, 3 minima) plus the tile
-# origin and the cut (5)
-B4_OPS_PER_SLOT = 62
-
 CFG = DEFAULT
 RC = CFG.raster
 
@@ -173,11 +165,14 @@ def smi(query: str) -> str:
     return out.strip().splitlines()[0]
 
 
-def sfu_rate() -> float:
-    """exp results per second of the whole card at its maximum SM clock."""
+def card_datasheet_rates() -> roofline.Rates:
+    """The data sheet's rates (67 TFLOP/s, an FMA two FLOPs: 33.5 T f32
+    instructions/s; 16 exp results per clock per SM at the maximum SM
+    clock), which the kernel bounds used before the P1 probes measured the
+    card."""
     mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    return roofline.datasheet_rates(sms, mhz)
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2):
@@ -195,6 +190,18 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), times
+
+
+def cuda_ms_once(fn):
+    """(ms, result) of one call of ``fn`` between CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
 
 
 class Frame:
@@ -284,97 +291,32 @@ class Frame:
                     tight=int(self.binning.num_instances),
                     tile_max=int(c.max()), tile_median=float(np.median(c)))
 
-    def b4_bound(self):
+    def b4_bound(self, rates):
         n = self.proj.u.shape[0]
         nbytes = n * 12 * 4 + self.bb.total * 8
         ops = self.bb.total * B4_OPS_PER_SLOT
-        return bound(nbytes, ops)
+        return roofline.bound(nbytes, ops, 0, rates)
 
-    def b1_work(self, eps):
+    def pairs(self, eps):
         """(evaluated, tested, live) instance-pixel pairs of B1 (and B2,
-        which walks the same batches; B5 at eps 0) under early stop ``eps``;
-        computed once per eps."""
+        which walks the same batches; B5 at eps 0) under early stop ``eps``
+        (``roofline.blend_pairs``); computed once per eps."""
         if eps not in self._work:
-            self._work[eps] = self._b1_work(eps)
+            self._work[eps] = roofline.blend_pairs(
+                self.ptab, self.binning, self.proj, tiles_x=self.tx,
+                tiles_y=self.ty, tile_size=RC.tile_size,
+                chunk=CFG.tiles.chunk, alpha_min=RC.alpha_min,
+                alpha_max=RC.alpha_max, eps=eps)
         return self._work[eps]
 
-    def _b1_work(self, eps):
-        """(evaluated, tested, live) instance-pixel pairs of B1 under early
-        stop ``eps``: replays the kernel's tile-wide stop rule (a batch runs
-        only while the tile's max T >= eps) on T alone, step by step as the
-        plain version composites, and counts the pairs of the batches that
-        run, those of them inside the instance's cutoff box (or past the
-        cut), and those whose alpha passes the cut."""
-        b = self.binning.tile_bounds
-        start, cnt = b[:-1].long(), (b[1:] - b[:-1]).long()
-        ts, chunk = RC.tile_size, CFG.tiles.chunk
-        dev = self.ptab.device
-        pid = torch.arange(ts * ts, device=dev)
-        px = ((pid % ts).float() + 0.5)[None, :]
-        py = ((pid // ts).float() + 0.5)[None, :]
-        tid = torch.arange(self.num_tiles, device=dev)
-        x0f = ((tid % self.tx) * ts).float()[:, None]
-        y0f = ((tid // self.tx) * ts).float()[:, None]
-        trans = torch.ones(self.num_tiles, ts * ts, device=dev)
-        alive = torch.ones(self.num_tiles, dtype=torch.bool, device=dev)
-        evaluated = torch.zeros((), dtype=torch.int64, device=dev)
-        tested = torch.zeros((), dtype=torch.int64, device=dev)
-        live_pairs = torch.zeros((), dtype=torch.int64, device=dev)
-        last = max(self.binning.inst_gauss.shape[0] - 1, 0)
-        for step in range(int(cnt.max())):
-            if step % chunk == 0:
-                alive = alive & (trans.amax(dim=1) >= eps)
-            run = alive & (step < cnt)
-            g = self.binning.inst_gauss[
-                torch.clamp(start + step, max=last)].long()
-            row = self.ptab[g]
-            dx = px - (row[:, blend.P_MX, None] - x0f)
-            dy = py - (row[:, blend.P_MY, None] - y0f)
-            q = ((row[:, blend.P_CA, None] * dx
-                  + (2.0 * row[:, blend.P_CB, None]) * dy) * dx
-                 + row[:, blend.P_CC, None] * dy * dy)
-            alpha = torch.clamp_max(
-                row[:, blend.P_OP, None] * torch.exp(-0.5 * q), RC.alpha_max)
-            cut = (alpha >= RC.alpha_min) & run[:, None]
-            inbox = ((dx.abs() <= self.proj.ex[g, None])
-                     & (dy.abs() <= self.proj.ey[g, None]))
-            alpha = torch.where(cut, alpha, torch.zeros_like(alpha))
-            trans = trans * (1.0 - alpha)
-            evaluated += run.sum() * (ts * ts)
-            tested += ((inbox & run[:, None]) | cut).sum()
-            live_pairs += cut.sum()
-        return int(evaluated), int(tested), int(live_pairs)
-
-    def blend_ops(self, eps, ops_per_live: int, sfu_per_s: float):
-        """(evaluated, tested, live, f32 ops, exp ms) of a blend kernel at
-        early stop ``eps``: the q test per tested pair, alpha and
-        ``ops_per_live`` per live pair, one exp per live pair."""
-        evals, tested, live = self.b1_work(eps)
-        ops = tested * Q_TEST_OPS + live * (ALPHA_OPS + ops_per_live)
-        return evals, tested, live, ops, live / sfu_per_s * 1e3
-
-    def b1_bound(self, sfu_per_s: float):
-        evals, tested, live, ops, t_sfu = self.blend_ops(
-            RC.early_stop_eps, B1_OPS_PER_LIVE, sfu_per_s)
-        n = self.proj.u.shape[0]
-        # each input read once: the [N, 16] table, the instance indices, the
-        # tile bounds; rgb, T, best weight and label written once
-        nbytes = (n * 16 * 4 + self.binning.inst_gauss.numel() * 4
-                  + (self.num_tiles + 1) * 4
-                  + self.cam.width * self.cam.height * 6 * 4)
-        return bound(nbytes, ops, t_sfu), evals, tested, live, t_sfu
-
-    def b5_bound(self, sfu_per_s: float):
-        """B5 evaluates every (instance, pixel) pair, counts.sum() x
-        tile_size^2 (no early stop), but needs only B1's work at eps 0 plus
-        the max per live pair; B1's bytes plus the [B] f32 rows."""
-        evals, tested, live, ops, t_sfu = self.blend_ops(
-            0.0, B1_OPS_PER_LIVE + 1, sfu_per_s)
-        n = self.proj.u.shape[0]
-        b = self.binning.inst_gauss.numel()
-        nbytes = (n * 16 * 4 + b * 4 + (self.num_tiles + 1) * 4
-                  + self.cam.width * self.cam.height * 6 * 4 + b * 4)
-        return bound(nbytes, ops, t_sfu), evals, tested, live, t_sfu
+    def blend_bound(self, kernel: str, rates):
+        """``roofline.blend_bound`` of B1, B2 (early stop at the default)
+        or B5 (none) on this frame's data."""
+        eps = 0.0 if kernel == "B5" else RC.early_stop_eps
+        return roofline.blend_bound(
+            kernel, self.pairs(eps), self.proj.u.shape[0],
+            self.binning.inst_gauss.numel(), self.num_tiles, self.cam.width,
+            self.cam.height, rates)
 
     def bwd_args(self, eps=RC.early_stop_eps):
         """B2's inputs at early stop ``eps``: the stream, B1's (rgb, T)
@@ -414,30 +356,9 @@ class Frame:
                                   self.binning.enum_start,
                                   self.binning.enum_cnt)
 
-    def b2_bound(self, sfu_per_s: float):
-        evals, tested, live, ops, t_sfu = self.blend_ops(
-            RC.early_stop_eps, B2_OPS_PER_LIVE, sfu_per_s)
-        n = self.proj.u.shape[0]
+    def b3_bound(self, rates):
         b = self.binning.inst_gauss.numel()
-        # the [N, 16] table, indices, tile bounds, rgb/T and their
-        # cotangents read once; the [B, 16] rows written once
-        nbytes = (n * 16 * 4 + b * 4 + (self.num_tiles + 1) * 4
-                  + self.cam.width * self.cam.height * 8 * 4 + b * 16 * 4)
-        return bound(nbytes, ops, t_sfu), evals, tested, live, t_sfu
-
-    def b3_bound(self):
-        b = self.binning.inst_gauss.numel()
-        return bound(2 * b * 16 * 4, b * 16)
-
-
-def bound(nbytes: int, ops: int, t_sfu: float = 0.0):
-    """(bound_ms, bound_by, bytes, ops): the larger of the bytes over the
-    HBM rate and the operations over their peak rate (f32, or the exp unit
-    where ``t_sfu`` is larger)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / F32_FLOPS * 1e3, t_sfu)
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            nbytes, ops)
+        return roofline.bound(2 * b * 16 * 4, b * 16, 0, rates)
 
 
 def check_b4(frame: Frame) -> float:
@@ -671,7 +592,9 @@ def check_gradients(device) -> None:
 
 
 WRAPPERS = (tiles.enum_keys, blend.blend_tiles_fwd, blend.blend_tiles_bwd,
-            blend.cumsum_rows, blend.blend_tiles_vis)
+            blend.cumsum_rows, blend.blend_tiles_vis, roofline.fma_chains,
+            roofline.expf_chains, scan_probe.flat_scan_kernel,
+            scan_probe.grouped_scan_kernel)
 
 
 def reset_launches() -> None:
@@ -947,6 +870,367 @@ def label_main_path(scene, device, card):
     return vis_run["launches"], {**times, **per_view}
 
 
+def p1_args(which: str):
+    """(plain version's (a, b), wrapper) of one P1 probe."""
+    if which == "fma":
+        return (roofline.FMA_A, roofline.FMA_B), roofline.fma_chains
+    return (roofline.EXP_SCALE, 0.0), roofline.expf_chains
+
+
+def check_p1(device) -> dict:
+    """Both chains against their plain versions on a small launch (one
+    block of 256 threads an SM, 3 rounds, a uniform [0.5, 1.5) input):
+    relative error within 1e-5. Returns each probe's max abs error."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x = torch.rand(roofline.PROBE_ELEMS, generator=torch.Generator(
+        device=device).manual_seed(3), device=device) + 0.5
+    errs = {}
+    for which in ("fma", "expf"):
+        ab, fn = p1_args(which)
+        got = fn(x, blocks=sms, iters=3)
+        want = roofline._chains_plain(x, which, sms, 3, *ab)
+        torch.cuda.synchronize()
+        rel = float((got / want - 1).abs().max())
+        errs[which] = float((got - want).abs().max())
+        log({"check": f"P1 {which} chain vs plain", "threads": got.numel(),
+             "rounds": 3, "max_rel_err": rel, "max_abs_err": errs[which]})
+        if not rel <= 1e-5:
+            raise AssertionError(f"P1 {which} differs from its plain "
+                                 f"version by {rel} (relative)")
+    return errs
+
+
+def check_p2(device) -> dict:
+    """Both scan kernels against their plain versions and float64
+    cumprod / cumsum (bars 1e-5 and 1e-3, scripts/profile_scan_variants.py
+    :84) on [64, 1000], and the rounds against the plain rounds (1e-6) at
+    1 and 1024 passes. Returns each variant's max abs error against its
+    plain version."""
+    x = scan_probe.probe_input(device, 1000)
+    errs = {}
+    for variant in ("flat", "grouped"):
+        res = {}
+        for op in ("prod", "sum"):
+            got = scan_probe.scan(x, op, variant)
+            want = scan_probe._scan_plain(x, op, variant)
+            ref = (torch.cumprod if op == "prod" else torch.cumsum)(
+                x.double(), 0)
+            torch.cuda.synchronize()
+            res[op] = (float((got - want).abs().max()),
+                       float((got.double() - ref).abs().max()))
+        for reps in (1, scan_probe.BENCH_REPS):
+            got = scan_probe.scan_rounds(x, variant, reps)
+            want = scan_probe._rounds_plain(x, variant)
+            torch.cuda.synchronize()
+            res[f"rounds x{reps}"] = (float((got - want).abs().max()), None)
+        log({"check": f"P2 {variant} scan vs plain and float64",
+             "shape": list(x.shape),
+             "max_abs_err_vs_plain_and_float64": res})
+        if not (res["prod"][1] < 1e-5 and res["sum"][1] < 1e-3
+                and max(v[0] for v in res.values()) <= 1e-6):
+            raise AssertionError(f"P2 {variant} scan is wrong: {res}")
+        errs[variant] = max(v[0] for v in res.values())
+    return errs
+
+
+def rounds_library(x):
+    """``torch.cumprod`` + ``torch.cumsum`` over the probe's four rounds."""
+    acc = x
+    for _ in range(scan_probe.ROUNDS):
+        acc = torch.cumsum(torch.cumprod(acc, 0), 0) * 1e-6 + x
+    return acc
+
+
+def probe_phase(device, card) -> dict:
+    """Phase P: the P1 path (``utils.roofline``'s report: the card's rates
+    and the bench frame's SOL) and the P2 path (``utils.scan_probe``'s check
+    and bench), each with the launch counts reset just before and read just
+    after; each kernel against its plain version; the probes' times,
+    plain and library times and bounds. Returns the measured peaks and the
+    kernel rows."""
+    out = REPO / "build" / "chip_smoke" / "roofline_torch.json"
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = roofline.main(["--out", str(out)])
+    p1_launches = read_launches()
+    report = json.loads(out.read_text())
+    peaks = report["peaks"]
+    clocks = smi("clocks.sm,clocks.max.sm,power.draw")
+    log({"phase": "P1 roofline report", "seconds": time.perf_counter() - t0,
+         "launches": p1_launches, "clocks_sm_max_sm_power_after": clocks,
+         "card": card})
+    reset_launches()
+    rc2 = scan_probe.main(["--bench"])
+    p2_launches = read_launches()
+    log({"phase": "P2 scan probe", "launches": p2_launches})
+    paths = {"fma_chains": p1_launches, "expf_chains": p1_launches,
+             "flat_scan_kernel": p2_launches,
+             "grouped_scan_kernel": p2_launches}
+    if rc or rc2 or any(paths[k][k] == 0 for k in paths):
+        raise AssertionError(f"probe paths failed: roofline {rc}, scan "
+                             f"probe {rc2}, launches {paths}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(smi("clocks.max.sm").split()[0])
+    # a folded chain would read faster than 128 f32 lanes an SM can run
+    ceiling = roofline.F32_LANES_PER_SM * sms * mhz * 1e6
+    if not 0 < peaks["fma_per_s"] <= 1.02 * ceiling:
+        raise AssertionError(f"fma_per_s {peaks['fma_per_s']} outside (0, "
+                             f"{ceiling}]")
+    sheet = card_datasheet_rates()
+    rates = roofline.measured_rates(peaks)
+    log({"measure": "card rates", "measured": rates._asdict(),
+         "datasheet": sheet._asdict(),
+         "fma_per_s_over_128_lanes_at_max_clock": peaks["fma_per_s"]
+         / ceiling, "sm_mhz_under_load": peaks["sm_mhz_under_load"],
+         "power_w_under_load": peaks["power_w_under_load"],
+         "f32_issue_per_s_under_load": peaks["f32_issue_per_s"],
+         "clocks_sm_max_sm_power_after": clocks, "card": card})
+
+    errs1 = check_p1(device)
+    errs2 = check_p2(device)
+    rows = []
+    x = torch.ones(roofline.PROBE_ELEMS, device=device)
+    blocks = peaks["blocks"]
+    for which, replaces in (("fma", "scripts/roofline.py:42"),
+                            ("expf", "scripts/roofline.py:57")):
+        ab, fn = p1_args(which)
+        iters = peaks[f"{which}_iters"]
+        ms, runs = cuda_ms(lambda: fn(x, blocks=blocks, iters=iters))
+        # the main path's launch (its blocks and rounds) against the plain
+        # chains at the same arguments, timed once
+        got = fn(x, blocks=blocks, iters=iters)
+        plain_ms, want = cuda_ms_once(lambda: roofline._chains_plain(
+            x, which, blocks, iters, *ab))
+        rel = float((got / want - 1).abs().max())
+        errs1[which] = max(errs1[which], float((got - want).abs().max()))
+        log({"check": f"P1 {which} chain vs plain at the main path's launch",
+             "threads": got.numel(), "rounds": iters, "max_rel_err": rel})
+        if not rel <= 1e-5:
+            raise AssertionError(f"P1 {which} differs from its plain version "
+                                 f"by {rel} (relative) at {blocks} blocks, "
+                                 f"{iters} rounds")
+        del got, want
+        threads = blocks * roofline.THREADS
+        nbytes = x.numel() * 4 + threads * 4
+        if which == "fma":
+            work = (nbytes, threads * roofline.CHAINS * roofline.FMA_STEPS
+                    * iters, 0)
+        else:
+            exps = threads * roofline.CHAINS * roofline.EXP_STEPS * iters
+            work = (nbytes, 2 * exps, exps)
+        # a probe's bound is the data sheet's: at the measured rates it
+        # would be the probe's own time
+        b = roofline.bound(*work, sheet)
+        log({"measure": f"P1 {which} chain", "blocks": blocks,
+             "rounds": iters, "ms": ms, "runs_ms": runs,
+             "plain_ms": plain_ms, "bound_ms_datasheet": b[0],
+             "bound_by": b[1], "card": card})
+        rows.append({"name": fn.__name__, "route": "cuda",
+                     "source": "gsplat_tpu_torch/csrc/peak_probe.cu",
+                     "replaces": replaces,
+                     "launches": p1_launches[fn.__name__],
+                     "max_abs_err": errs1[which], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b[0],
+                     "bound_by": b[1], "bound_ms_datasheet": b[0],
+                     "bound_by_datasheet": b[1], "library_ms": None})
+
+    # P2: the rounds over 1024 passes of one [64, 1024] input; the plain
+    # and library versions take the same passes laid side by side, one
+    # [64, 1024 x 1024] array
+    xs = scan_probe.probe_input(device, scan_probe.BENCH_COLS)
+    reps = scan_probe.BENCH_REPS
+    wide = xs.repeat(1, reps)
+    lib_ms, lib_runs = cuda_ms(lambda: rounds_library(wide), reps=5)
+    elems = reps * xs.numel()
+    nbytes = 2 * xs.numel() * 4
+    # the least work: one combine an element a scan, two scans and the
+    # update's FMA a round
+    ops = elems * scan_probe.ROUNDS * 3
+    for variant, replaces in (
+            ("flat", "scripts/profile_scan_variants.py:87"),
+            ("grouped", "scripts/profile_scan_variants.py:71")):
+        fn = scan_probe.KERNELS[variant]
+        ms, runs = cuda_ms(lambda: scan_probe.scan_rounds(xs, variant, reps))
+        # the main path's launch (the bench's input and passes) against the
+        # plain rounds
+        err = float((scan_probe.scan_rounds(xs, variant, reps)
+                     - scan_probe._rounds_plain(xs, variant)).abs().max())
+        log({"check": f"P2 {variant} rounds vs plain at the main path's "
+             "launch", "shape": list(xs.shape), "passes": reps,
+             "max_abs_err": err})
+        if not err <= 1e-6:
+            raise AssertionError(f"P2 {variant} rounds differ from their plain "
+                                 f"version by {err} at {reps} passes")
+        errs2[variant] = max(errs2[variant], err)
+        plain_ms, _ = cuda_ms(
+            lambda: scan_probe._rounds_plain(wide, variant), reps=3,
+            warmup=1)
+        b = roofline.bound(nbytes, ops, 0, rates)
+        bs = roofline.bound(nbytes, ops, 0, sheet)
+        log({"measure": f"P2 {variant} rounds", "passes": reps,
+             "shape": list(xs.shape), "ms": ms, "runs_ms": runs,
+             "plain_ms": plain_ms, "library_ms": lib_ms,
+             "library_runs_ms": lib_runs, "bound_ms": b[0],
+             "bound_by": b[1], "bound_ms_datasheet": bs[0], "card": card})
+        rows.append({"name": fn.__name__, "route": "cuda",
+                     "source": "gsplat_tpu_torch/csrc/scan_probe.cu",
+                     "replaces": replaces,
+                     "launches": p2_launches[fn.__name__],
+                     "max_abs_err": errs2[variant], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b[0],
+                     "bound_by": b[1], "bound_ms_datasheet": bs[0],
+                     "bound_by_datasheet": bs[1], "library_ms": lib_ms})
+    del wide
+    return peaks, rows
+
+
+def decode_png(path: Path) -> np.ndarray:
+    """[H, W, 3] uint8 pixels of an 8-bit RGB PNG whose rows all carry
+    filter type 0 (what ``io/png.py`` writes), read with zlib alone."""
+    data = path.read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    off, idat, size = 8, b"", None
+    while off < len(data):
+        n, = struct.unpack(">I", data[off:off + 4])
+        kind, body = data[off + 4:off + 8], data[off + 8:off + 8 + n]
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(
+                ">I", data[off + 8 + n:off + 12 + n])[0]:
+            raise AssertionError(f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            if (depth, ctype) != (8, 2):
+                raise AssertionError(f"{path} is not 8-bit RGB")
+            size = (h, w)
+        elif kind == b"IDAT":
+            idat += body
+        off += 12 + n
+    h, w = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+RENDER_SESSION = (EditState().toggle_visibility(3)
+                  .displace(1, (0.05, 0.0, 0.0))
+                  .set_color(2, (0.1, 0.2, 0.9)))
+
+
+def render_cli_phase(scene, ply_path: Path, device, card) -> dict:
+    """Phase R: ``cli.render`` over the 8 orbit views at 800x608 of the 2M
+    scene's PLY, with label maps and a session that hides label 3,
+    displaces label 1 and recolours label 2; every PNG decodes to the
+    render's uint8 image, label 3 is in no label map, B4 and B1 launch once
+    a view. Then the scene through ``write_splat`` -> ``load_scene``, and
+    the dense path on the card against the tiled render. Returns the
+    CLI's launch counts."""
+    work = REPO / "build" / "chip_smoke" / "render"
+    out_dir = work / "frames"
+    try:
+        work.mkdir(parents=True, exist_ok=True)
+        cams = orbit_cameras(8, 3.0, width=WIDTH, img_height=HEIGHT)
+        save_cameras(str(work / "cameras.json"), cams)
+        RENDER_SESSION.save(str(work / "session.json"))
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = render_cli.main([
+            "--ply_file", str(ply_path), "--camera_file",
+            str(work / "cameras.json"), "--out_dir", str(out_dir),
+            "--label_maps", "--session", str(work / "session.json"),
+            "--device", str(device)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        edited = apply_edits(scene, RENDER_SESSION)
+        checked = []
+        for cam in cams:
+            want = render(edited, cam, CFG, with_labels=True, device=device)
+            rgb = (np.clip(want["image"].cpu().numpy(), 0.0, 1.0)
+                   * 255).astype(np.uint8)
+            stem = out_dir / f"{cam.img_name}_{cam.id:04d}"
+            png_ok = np.array_equal(decode_png(stem.with_suffix(".png")), rgb)
+            vis = decode_png(Path(f"{stem}_labels.png"))
+            lm = np.load(f"{stem}_labels.npy")
+            checked.append({
+                "view": cam.id, "png_equal": png_ok,
+                "labels_png_left_equal": np.array_equal(vis[:, :WIDTH], rgb),
+                "label_map_equal": np.array_equal(
+                    lm, want["label_map"].cpu().numpy()),
+                "label_3_pixels": int((lm == 3).sum()),
+                "labelled": float((lm != UNLABELED).mean())})
+        log({"phase": "render CLI main path", "gaussians":
+             scene.num_gaussians, "views": len(cams), "wall_s": wall,
+             "wall_s_per_view": wall / len(cams), "launches": launches,
+             "views_checked": checked, "card": card})
+        bad = [c for c in checked
+               if not (c["png_equal"] and c["labels_png_left_equal"]
+                       and c["label_map_equal"] and c["label_3_pixels"] == 0)]
+        if rc != 0 or bad:
+            raise AssertionError(f"render CLI returned {rc}; wrong views "
+                                 f"{bad}")
+        for name in ("enum_keys", "blend_tiles_fwd"):
+            if launches[name] != len(cams):
+                raise AssertionError(f"{name} launched {launches[name]} "
+                                     f"times for {len(cams)} views")
+
+        # .splat: the 2M scene written and read back by magic bytes
+        t0 = time.perf_counter()
+        splat = work / "scene_2m.splat"
+        write_splat(str(splat), scene, labels_path=str(work / "labels"))
+        t_write = time.perf_counter() - t0
+        back = load_scene(str(splat), device=device)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0 - t_write
+        s = scene.to_numpy()
+        order = np.argsort(-importance(scene), kind="stable")
+        b = back.to_numpy()
+        res = {"rows": back.num_gaussians, "bytes": splat.stat().st_size,
+               "write_s": t_write, "load_s": t_load,
+               "means_equal": bool(np.array_equal(b["means"],
+                                                  s["means"][order])),
+               "labels_equal": bool(np.array_equal(
+                   np.fromfile(work / "labels", "<i4"),
+                   s["labels"][order])),
+               "log_scale_max_err": float(np.abs(
+                   b["log_scales"] - s["log_scales"][order]).max()),
+               "color_max_err": float(np.abs(
+                   dc_color(b["sh"][:, 0]) - np.clip(dc_color(
+                       s["sh"][order, 0]), 0, 1)).max())}
+        log({"check": "2M scene through write_splat -> load_scene", **res})
+        if not (res["rows"] == scene.num_gaussians and res["means_equal"]
+                and res["labels_equal"] and res["log_scale_max_err"] <= 1e-5
+                and res["color_max_err"] <= 1 / 255 + 1e-6):
+            raise AssertionError(f".splat round trip is wrong: {res}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check_dense(device)
+    return launches
+
+
+def check_dense(device) -> None:
+    """``render(impl="dense")`` on the card against the tiled render on the
+    card, 3,000 gaussians at 160x120, to tests/test_render_xla.py's oracle
+    bar (median < 1e-5, max < 5e-3, alpha within 5e-3, labels within
+    1%)."""
+    scene = random_scene(3000, seed=21, num_labels=6, device=device)
+    cam = look_at_camera((0.2, -0.3, -3.0), (0, 0, 0), width=160, height=120)
+    dense = render(scene, cam, CFG, with_labels=True, impl="dense",
+                   device=device)
+    tiled = render(scene, cam, CFG, with_labels=True, device=device)
+    err = (dense["image"] - tiled["image"]).abs()
+    res = {"median": float(err.median()), "max": float(err.max()),
+           "alpha_max": float((dense["alpha"] - tiled["alpha"]).abs().max()),
+           "label_mismatch": float((dense["label_map"]
+                                    != tiled["label_map"]).float().mean())}
+    log({"check": "dense render vs tiled, on the card",
+         "scene": "random 3000, 160x120", **res})
+    if not (res["median"] < 1e-5 and res["max"] < 5e-3
+            and res["alpha_max"] <= 5e-3 and res["label_mismatch"] < 0.01):
+        raise AssertionError(f"dense render differs from tiled: {res}")
+
+
 def rehearse(views: int, reduce: int) -> int:
     """Phase L at reduced size on the CPU, where the kernel wrappers take
     their plain versions: the 2M scene with ``reduce`` times fewer
@@ -994,7 +1278,6 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     card = smi("name,power.limit")
     log(card)
-    sfu = sfu_rate()
     log({"torch": torch.__version__, "cuda": torch.version.cuda,
          "python": sys.version.split()[0],
          "device": torch.cuda.get_device_name(0)})
@@ -1008,6 +1291,11 @@ def main(argv=None) -> int:
         for line in info["ptxas"].splitlines():
             if "ptxas info" in line or "spill" in line:
                 log(f"[{name}] {line.strip()}")
+
+    # P. the probes: the card's rates (P1) and the scans (P2)
+    peaks, probe_rows = probe_phase(device, card)
+    rates = roofline.measured_rates(peaks)
+    sheet = card_datasheet_rates()
 
     # 2. bench frame: kernels against plain versions, counts, small render
     bench = Frame(random_scene(100_000, seed=0, extent=1.5,
@@ -1041,7 +1329,6 @@ def main(argv=None) -> int:
     scene_to_ply(str(ply_path), made)
     scene = scene_from_ply(str(ply_path), device=device)
     ply_bytes = ply_path.stat().st_size
-    ply_path.unlink()
     for f in ("means", "log_scales", "quats", "opacities", "sh", "labels"):
         if not torch.equal(getattr(scene, f), getattr(made, f)):
             raise AssertionError(f"PLY round trip changed {f}")
@@ -1075,6 +1362,10 @@ def main(argv=None) -> int:
                 and out["image"].shape == (HEIGHT, WIDTH, 3)):
             raise AssertionError(f"view {i} is wrong")
     del frames
+
+    # R. the offline render path: the render CLI over the PLY, .splat, dense
+    cli_launches = render_cli_phase(scene, ply_path, device, card)
+    ply_path.unlink()
 
     big = Frame(scene, cams[0])
     err_b4 = max(err_b4, check_b4(big))
@@ -1138,39 +1429,46 @@ def main(argv=None) -> int:
         row["glue"] = row["render"] - sum(
             row[s] for s in ("project", "B4 enum_keys", "sort",
                              "B1 blend_tiles_fwd"))
-        b4 = fr.b4_bound()
-        b1, evals, tested, live, t_sfu = fr.b1_bound(sfu)
-        b2, _, _, _, _ = fr.b2_bound(sfu)
-        b3 = fr.b3_bound()
-        b5, evals5, tested5, live5, t_sfu5 = fr.b5_bound(sfu)
+        b4 = fr.b4_bound(rates)
+        b3 = fr.b3_bound(rates)
+        blends = {k: (fr.blend_bound(k, rates), fr.blend_bound(k, sheet))
+                  for k in ("B1", "B2", "B5")}
         log({"measure": "render peak memory", "frame": tag,
              "max_memory_allocated_bytes": peak, "card": card})
-        log({"measure": "bounds", "frame": tag,
-             "B4": {"bound_ms": b4[0], "bound_by": b4[1], "bytes": b4[2],
-                    "ops": b4[3]},
-             "B1": {"bound_ms": b1[0], "bound_by": b1[1], "bytes": b1[2],
-                    "ops": b1[3], "evaluated_pairs": evals,
-                    "tested_pairs": tested, "live_pairs": live,
-                    "all_pairs": int(fr.counts.sum()) * RC.tile_size ** 2,
-                    "f32_ms": b1[3] / F32_FLOPS * 1e3, "exp_ms": t_sfu,
-                    "exp_per_s": sfu},
-             "B2": {"bound_ms": b2[0], "bound_by": b2[1], "bytes": b2[2],
-                    "ops": b2[3], "f32_ms": b2[3] / F32_FLOPS * 1e3,
-                    "exp_ms": t_sfu},
-             "B3": {"bound_ms": b3[0], "bound_by": b3[1], "bytes": b3[2],
-                    "ops": b3[3]},
-             "B5": {"bound_ms": b5[0], "bound_by": b5[1], "bytes": b5[2],
-                    "ops": b5[3], "evaluated_pairs": evals5,
-                    "tested_pairs": tested5, "live_pairs": live5,
-                    "f32_ms": b5[3] / F32_FLOPS * 1e3,
-                    "exp_ms": t_sfu5},
+        bounds = {"B4": {"bound_ms": b4[0], "bound_by": b4[1],
+                         "bytes": b4[2], "ops": b4[3]},
+                  "B3": {"bound_ms": b3[0], "bound_by": b3[1],
+                         "bytes": b3[2], "ops": b3[3]}}
+        for k, (m, d) in blends.items():
+            evals, tested, live = fr.pairs(0.0 if k == "B5"
+                                           else RC.early_stop_eps)
+            bounds[k] = {
+                "bound_ms": m[0], "bound_by": m[1],
+                "bound_ms_datasheet": d[0], "bound_by_datasheet": d[1],
+                "bytes": m[2], "ops": m[3], "evaluated_pairs": evals,
+                "tested_pairs": tested, "live_pairs": live,
+                "bytes_ms": m[2] / HBM_BYTES_PER_S * 1e3,
+                "f32_ms": m[3] / rates.ops_per_s * 1e3,
+                "exp_ms": live / rates.exp_per_s * 1e3,
+                "f32_ms_datasheet": m[3] / sheet.ops_per_s * 1e3,
+                "exp_ms_datasheet": live / sheet.exp_per_s * 1e3}
+        bounds["B1"]["all_pairs"] = (int(fr.counts.sum())
+                                     * RC.tile_size ** 2)
+        log({"measure": "bounds", "frame": tag, **bounds,
+             "rates": rates._asdict(), "rates_datasheet": sheet._asdict(),
              "glue_ms": row["glue"], "card": card})
-        results[tag] = (row, b4, b1, b2, b3, b5)
+        results[tag] = (row, b4, b3, blends)
 
-    row, b4, b1, b2, b3, b5 = results["2M view 0"]
+    row, b4, b3, blends = results["2M view 0"]
     by_path = {k: {"render": launches[k], "train": train_launches[k],
-                   "label": label_launches[k]}
+                   "label": label_launches[k], "render_cli": cli_launches[k]}
                for k in launches}
+
+    def blend_row(k):
+        m, d = blends[k]
+        return {"bound_ms": m[0], "bound_by": m[1], "bound_ms_datasheet": d[0],
+                "bound_by_datasheet": d[1]}
+
     kernels = [
         {"name": "enum_keys", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/enum_keys.cu",
@@ -1183,13 +1481,13 @@ def main(argv=None) -> int:
          "replaces": "gsplat_tpu/render/blend_pallas.py:210",
          "launches": launches["blend_tiles_fwd"], "max_abs_err": err_b1,
          "ms": row["B1 blend_tiles_fwd"], "plain_ms": row["B1 plain"],
-         "bound_ms": b1[0], "bound_by": b1[1], "library_ms": None},
+         **blend_row("B1"), "library_ms": None},
         {"name": "blend_tiles_bwd", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/blend_bwd.cu",
          "replaces": "gsplat_tpu/render/blend_pallas.py:299",
          "launches": train_launches["blend_tiles_bwd"],
          "max_abs_err": err_b2, "ms": row["B2 blend_tiles_bwd"],
-         "plain_ms": row["B2 plain"], "bound_ms": b2[0], "bound_by": b2[1],
+         "plain_ms": row["B2 plain"], **blend_row("B2"),
          "library_ms": None},
         {"name": "cumsum_rows", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/cumsum_rows.cu",
@@ -1203,17 +1501,20 @@ def main(argv=None) -> int:
          "replaces": "gsplat_tpu/render/blend_pallas.py:250",
          "launches": label_launches["blend_tiles_vis"],
          "max_abs_err": err_b5, "ms": row["B5 blend_tiles_vis"],
-         "plain_ms": row["B5 plain"], "bound_ms": b5[0], "bound_by": b5[1],
+         "plain_ms": row["B5 plain"], **blend_row("B5"),
          "library_ms": None},
     ]
     # "launches" counts each kernel on the path that brought it: the 8-view
     # render for B4 and B1, the 10 training steps for B2 and B3, the
-    # visible-mode label run of 311 views for B5; every path's counts are in
+    # visible-mode label run of 311 views for B5, the roofline report for
+    # P1 and the scan probe for P2; every path's counts are in
     # launches_by_path. No single PyTorch call computes B4, B1, B2 or B5
     # (B5's segment max onto gaussians is a scatter_reduce outside the
-    # kernel), hence no library time; B3's is torch.cumsum.
+    # kernel), hence no library time; B3's is torch.cumsum. Bounds take the
+    # P1 probes' rates, those of the data sheet beside them.
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
+    kernels += probe_rows
     log({"measure": "train step breakdown", "ms": train_row,
          "max_memory_allocated_bytes": train_peak, "card": card})
     log({"measure": "labeling breakdown", "ms": label_times, "card": card})

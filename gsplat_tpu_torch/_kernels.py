@@ -54,6 +54,9 @@ SIGNATURES = {
     "blend_vis": ("gsplat_blend_vis",
                   [_P] * 3 + [_I] * 6 + [_F] * 2 + [_I] + [_P] * 5
                   + [_I, _P]),
+    "peak_probe": ("gsplat_peak_probe",
+                   [_I, _P, _I, _P, _I, _I, _F, _F, _P]),
+    "scan_probe": ("gsplat_scan_probe", [_I, _I, _P, _I, _P, _I, _P]),
 }
 
 _functions: Dict[str, ctypes._CFuncPtr] = {}

@@ -7,7 +7,8 @@ that appends a ``('label', 'i4')`` property (deep_learning_segmentation.py:
 
 Gaussian PLY schema (gaussians_selection.js:491-579): per-vertex properties
 ``x y z [nx ny nz] f_dc_0..2 [f_rest_0..44] opacity scale_0..2 rot_0..3
-[label]``.
+[label]``. :func:`load_scene` tells a PLY from packed ``.splat`` rows
+(``io/splat_format.py``) by its magic bytes.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from gsplat_tpu_torch.config import NO_SELECTION
+from gsplat_tpu_torch.io.splat_format import read_splat
 from gsplat_tpu_torch.scene import DeviceLike, GaussianScene, scene_from_numpy
 
 # PLY scalar name -> numpy dtype (little-endian fixed for binary).
@@ -232,3 +234,24 @@ def add_labels_to_ply(
     out["label"] = labels
     elements["vertex"] = out
     write_ply(dst_path, elements, binary=binary)
+
+
+def load_scene(path: str, device: DeviceLike = None) -> GaussianScene:
+    """Auto-detecting scene loader (the drag-drop dispatch of
+    gaussians_selection.js:1644-1673): PLY magic bytes -> PLY codec;
+    anything else is read as packed 32-byte .splat rows. Matches on
+    ``b"ply"`` alone, so a PLY whose header lines end in CRLF is not taken
+    for .splat rows."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic[:3] == b"ply":
+        return scene_from_ply(path, device=device)
+    return read_splat(path, device=device)
+
+
+def load_scene_bytes(data: bytes, device: DeviceLike = None) -> GaussianScene:
+    """In-memory :func:`load_scene` (the live viewer's drag-drop ingestion,
+    gaussians_selection.js:1660-1673)."""
+    if data[:3] == b"ply":
+        return scene_from_ply(data, device=device)
+    return read_splat(data, device=device)

@@ -12,12 +12,14 @@ card unless the caller names another.
 
 from __future__ import annotations
 
+import colorsys
 import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from gsplat_tpu_torch.io import png
 from gsplat_tpu_torch.scene import DeviceLike, resolve_device
 
 SegmentFn = Callable[[str, "np.ndarray"], np.ndarray]  # (name, HxWx3) -> HxW i32
@@ -205,11 +207,8 @@ def _nearest_resize(seg: np.ndarray, h: int, w: int) -> np.ndarray:
 
 def save_visualization(path: str, image: np.ndarray, seg: np.ndarray,
                        num_classes: int = 150) -> None:
-    """Side-by-side image / colorized map PNG (reference py:163-214)."""
-    import colorsys
-
-    from PIL import Image
-
+    """Side-by-side image / colorized map PNG (reference py:163-214),
+    written by the port's own encoder (``io/png.py``), not PIL."""
     colors = np.zeros((num_classes + 1, 3), np.uint8)
     for i in range(num_classes):
         r, g, b = colorsys.hsv_to_rgb(i / num_classes, 0.9, 0.9)
@@ -218,4 +217,4 @@ def save_visualization(path: str, image: np.ndarray, seg: np.ndarray,
     h = min(image.shape[0], seg_vis.shape[0])
     side = np.concatenate(
         [np.asarray(image)[:h].astype(np.uint8), seg_vis[:h]], axis=1)
-    Image.fromarray(side).save(path)
+    png.write_png(path, side)

@@ -10,21 +10,26 @@ the counterpart of ``blend_scene_windows`` and its custom VJP): forward
 kernel B1, backward kernel B2 and the gradient fold over kernel B3.
 Projection and SH are plain torch, and autograd derives their VJP.
 ``render(impl="pallas_vis")`` is the labeler's visibility render over kernel
-B5 (:func:`_render_vis_impl`).
+B5 (:func:`_render_vis_impl`); ``render(impl="dense")`` the small-scene
+oracle of ``render/blend_dense.py``. :func:`measure_budgets` and
+:func:`measure_budgets_multi` keep the JAX names and return exact counts.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from gsplat_tpu_torch.config import Config, DEFAULT
 from gsplat_tpu_torch.io.cameras import Camera
-from gsplat_tpu_torch.render import blend
+from gsplat_tpu_torch.render import blend, blend_dense
 from gsplat_tpu_torch.render.projection import (CameraParams, Projected,
                                                 project, tile_grid)
-from gsplat_tpu_torch.render.tiles import TileBinning, bin_tiles
+from gsplat_tpu_torch.render.tiles import (TileBinning, bin_tiles,
+                                           count_instances,
+                                           count_instances_tight,
+                                           depth_qkeys)
 from gsplat_tpu_torch.scene import DeviceLike, GaussianScene, resolve_device
 
 
@@ -222,6 +227,29 @@ def _render_vis_impl(scene: GaussianScene, cam: CameraParams,
     return result
 
 
+def _render_dense_impl(scene: GaussianScene, cam: CameraParams,
+                       background: torch.Tensor, *, width: int, height: int,
+                       cfg: Config, with_labels: bool
+                       ) -> Dict[str, torch.Tensor]:
+    """The dense oracle path (``gsplat_tpu/render/api.py:195-207``): the
+    gaussians in the canonical compositing order, a stable sort of the
+    quantized depth keys of the tiled path's grid, blended densely
+    (``blend_dense.blend_dense``). Differentiable by autograd; nothing is
+    dropped."""
+    rc = cfg.raster
+    proj = project(scene, cam, width, height, rc,
+                   z_near=cfg.camera.z_near, z_far=cfg.camera.z_far)
+    tiles_x, tiles_y = tile_grid(width, height, rc.tile_size)
+    order = torch.argsort(depth_qkeys(proj.depth, proj.valid,
+                                      tiles_x * tiles_y), stable=True)
+    out = blend_dense.blend_dense(
+        proj, order, width, height, rc,
+        labels=scene.labels if with_labels else None, background=background)
+    out["num_dropped"] = torch.zeros((), dtype=torch.int32,
+                                     device=background.device)
+    return out
+
+
 def render(
     scene: GaussianScene,
     camera: Camera,
@@ -240,24 +268,77 @@ def render(
 
     ``impl='pallas'`` is the tiled kernel path (the name is the JAX one);
     ``impl='pallas_vis'`` the visibility render of the occlusion-aware vote
-    (kernel B5, no early stop), which adds ``gaussian_weight`` [N].
+    (kernel B5, no early stop), which adds ``gaussian_weight`` [N];
+    ``impl='dense'`` the O(H*W*N) plain-torch oracle for small scenes
+    (:func:`_render_dense_impl`), which refuses more than 2^30 pairs.
     ``budget``, ``kernel_budget`` and ``num_windows`` are accepted and
     ignored: the port sizes its buffers from the exact instance count, so
     ``num_dropped`` is always 0."""
     del budget, kernel_budget, num_windows
-    if impl == "dense":
-        raise NotImplementedError(
-            "impl='dense' (the dense oracle path, render/blend_xla.py) comes "
-            "with the port's dense-path slice")
-    if impl not in ("pallas", "pallas_vis"):
+    if impl not in ("pallas", "pallas_vis", "dense"):
         raise ValueError(f"unknown impl {impl!r}")
+    if impl == "dense":
+        # the dense oracle materializes [H*W, N] f32 interaction matrices
+        size = camera.width * camera.height * scene.num_gaussians
+        if size > (1 << 30):
+            raise ValueError(
+                f"impl='dense' materializes [H*W, N] = "
+                f"[{camera.width * camera.height}, {scene.num_gaussians}] "
+                f"f32 ({4 * size / 1e9:.0f} GB). The dense path is a "
+                "small-scene test oracle; use impl='pallas' (the tiled "
+                "kernel path) for scenes this size.")
     device = resolve_device(device)
     scene = scene.to(device)
     if background is None:
         background = cfg.raster.background
     background = torch.as_tensor(background, dtype=torch.float32,
                                  device=device)
-    impl_fn = _render_vis_impl if impl == "pallas_vis" else _render_impl
+    impl_fn = {"pallas": _render_impl, "pallas_vis": _render_vis_impl,
+               "dense": _render_dense_impl}[impl]
     return impl_fn(scene, CameraParams.from_camera(camera, device),
                    background, width=camera.width, height=camera.height,
                    cfg=cfg, with_labels=with_labels)
+
+
+def _view_counts(scene: GaussianScene, cam: CameraParams, width: int,
+                 height: int, cfg: Config) -> Tuple[int, int, int]:
+    rc = cfg.raster
+    tx, ty = tile_grid(width, height, rc.tile_size)
+    proj = project(scene, cam, width, height, rc, z_near=cfg.camera.z_near,
+                   z_far=cfg.camera.z_far)
+    kw = dict(tiles_x=tx, tiles_y=ty, tile_size=rc.tile_size)
+    return (count_instances(proj, **kw), count_instances_tight(proj, **kw),
+            tx * ty)
+
+
+@torch.no_grad()
+def measure_budgets(scene: GaussianScene, camera: Camera,
+                    cfg: Config = DEFAULT, *, device: DeviceLike = None
+                    ) -> Tuple[int, int, int]:
+    """(instance count, tight instance count, tile count) of one view, on
+    ``device`` (the card by default). The JAX package buckets these into the
+    static budgets of its windows; the port sizes every buffer from the
+    exact count, so it returns the counts themselves (the tile count in
+    place of a window count: it has no windows). ``render`` accepts the
+    tuple and ignores it."""
+    device = resolve_device(device)
+    return _view_counts(scene.to(device),
+                        CameraParams.from_camera(camera, device),
+                        camera.width, camera.height, cfg)
+
+
+@torch.no_grad()
+def measure_budgets_multi(scene: GaussianScene, cameras,
+                          cfg: Config = DEFAULT, *, device: DeviceLike = None
+                          ) -> Tuple[int, int, int]:
+    """:func:`measure_budgets` valid for every camera of ``cameras`` (one
+    resolution): the max of each count over the views, taken one view at a
+    time, so one projection is live at a time."""
+    device = resolve_device(device)
+    scene = scene.to(device)
+    best = (0, 0, 0)
+    for cam in cameras:
+        counts = _view_counts(scene, CameraParams.from_camera(cam, device),
+                              cam.width, cam.height, cfg)
+        best = tuple(max(a, b) for a, b in zip(best, counts))
+    return best

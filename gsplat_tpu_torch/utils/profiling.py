@@ -1,0 +1,120 @@
+"""Profiling and timing harness.
+
+Counterpart of ``gsplat_tpu.utils.profiling``:
+
+- ``device_timer``: steady-state seconds per call of a step. On the card it
+  brackets the calls with CUDA events after a warm-up call; on the CPU it
+  reads ``time.perf_counter``. PyTorch runs eagerly and a CUDA event waits
+  for the device, so neither the JAX version's on-device loop nor its
+  one-iteration baseline subtraction is needed.
+- ``Throughput``: turns step times into rate metrics (Mpix/s, gaussians
+  blended/s, steps/s).
+- ``trace``: a ``torch.profiler`` trace of the CPU and, where there is a
+  card, CUDA activity, written as a Chrome trace.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from pathlib import Path
+from typing import Callable, Dict, Optional
+
+import torch
+
+TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_trace"
+
+
+def fetch_sync(x) -> float:
+    """Wait for ``x`` and fetch its first element as a float."""
+    return float(torch.as_tensor(x).reshape(-1)[0])
+
+
+def _device_of(args) -> torch.device:
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return torch.device("cpu")
+
+
+def device_timer(
+    step_fn: Callable,
+    args,
+    *,
+    iters: int = 20,
+    perturb: Optional[Callable] = None,
+) -> float:
+    """Seconds per call of ``step_fn(*args, c)``, the mean of ``iters``
+    calls after one warm-up call.
+
+    ``c`` is the loop carry, the previous call's return value (``0.0`` for
+    the first); ``perturb(args, c)`` may instead thread it into the inputs.
+    The device is that of the first tensor in ``args``."""
+    device = _device_of(args)
+
+    def call(c):
+        a = perturb(args, c) if perturb else args
+        return step_fn(*a, c)
+
+    c = call(0.0)
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(device)
+        start.record()
+        for _ in range(iters):
+            c = call(c)
+        end.record()
+        end.synchronize()
+        return max(start.elapsed_time(end) * 1e-3 / iters, 1e-9)
+    fetch_sync(c)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        c = call(c)
+    fetch_sync(c)
+    return max((time.perf_counter() - t0) / iters, 1e-9)
+
+
+class Throughput:
+    """Accumulate step timings into named rate metrics."""
+
+    def __init__(self) -> None:
+        self.records: Dict[str, Dict[str, float]] = {}
+
+    def record(self, name: str, seconds: float, *,
+               pixels: Optional[int] = None,
+               gaussians_blended: Optional[int] = None) -> Dict[str, float]:
+        rec: Dict[str, float] = {"seconds": seconds,
+                                 "steps_per_s": 1.0 / seconds}
+        if pixels is not None:
+            rec["mpix_per_s"] = pixels / seconds / 1e6
+        if gaussians_blended is not None:
+            rec["gaussians_blended_per_s"] = gaussians_blended / seconds
+        self.records[name] = rec
+        return rec
+
+    def report(self) -> str:
+        lines = []
+        for name, rec in self.records.items():
+            parts = [f"{rec['seconds']*1e3:.2f} ms"]
+            if "mpix_per_s" in rec:
+                parts.append(f"{rec['mpix_per_s']:.1f} Mpix/s")
+            if "gaussians_blended_per_s" in rec:
+                parts.append(
+                    f"{rec['gaussians_blended_per_s']/1e9:.2f} G splats/s")
+            lines.append(f"{name}: " + ", ".join(parts))
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = str(TRACE_DIR)):
+    """``torch.profiler`` over the block; yields ``log_dir`` and writes
+    ``trace.json`` (open in Perfetto or chrome://tracing) into it."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -456,3 +456,85 @@ def test_assign_labels_visible_on_card_match_cpu(card):
     assert band.float().mean() <= 0.01
     assert torch.equal(got.cpu()[~band], want[~band])
     assert (want >= 0).float().mean() > 0.1
+
+
+# --- the probes (P1, P2) -----------------------------------------------------
+
+def test_probe_libraries_are_keyed_by_source():
+    from gsplat_tpu_torch.utils import roofline, scan_probe
+    paths = {name: _kernels.library_path(name)
+             for name in ("peak_probe", "scan_probe")}
+    assert paths["peak_probe"] != paths["scan_probe"]
+    for name, path in paths.items():
+        assert name in _kernels.SIGNATURES
+        assert path.parent == _kernels.BUILD_DIR
+        assert path.name.startswith(name + "-") and path.suffix == ".so"
+        assert (_kernels.CSRC / f"{name}.cu").is_file()
+    for fn in (roofline.fma_chains, roofline.expf_chains,
+               scan_probe.flat_scan_kernel, scan_probe.grouped_scan_kernel):
+        assert isinstance(fn.launches, int)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["fma", "expf"])
+@pytest.mark.parametrize("iters", [1, 7])
+def test_peak_kernels_match_plain(card, which, iters):
+    from gsplat_tpu_torch.utils import roofline
+    fn = roofline.fma_chains if which == "fma" else roofline.expf_chains
+    gen = torch.Generator(device=card).manual_seed(iters)
+    x = torch.rand(2048, generator=gen, device=card) + 0.5
+    before = fn.launches
+    got = fn(x, blocks=132, iters=iters)
+    want = roofline._chains_plain(
+        x, which, 132, iters, *((roofline.FMA_A, roofline.FMA_B)
+                                if which == "fma"
+                                else (roofline.EXP_SCALE, 0.0)))
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == (132 * 256,)
+    # one rounding a step on both sides (the plain FMA rounds once from
+    # f64); expf and torch.exp on the card agree to an ulp
+    assert ((got / want - 1).abs().max().item()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_measure_peaks_on_card(card):
+    from gsplat_tpu_torch.utils import roofline
+    peaks = roofline.measure_peaks(card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert peaks["blocks"] == sms * roofline.BLOCKS_PER_SM
+    assert peaks["fma_launch_s"] >= 0.5 * roofline.TARGET_S
+    # 128 f32 lanes an SM at no more than 2.1 GHz: a folded chain would
+    # read faster than the card can run
+    assert 0 < peaks["fma_per_s"] <= 128 * sms * 2.1e9
+    assert 0 < peaks["expf_per_s"] < peaks["fma_per_s"]
+    # the clock nvidia-smi reads under the chain's load
+    assert 0 < peaks["sm_mhz_under_load"] <= 2100
+    assert peaks["f32_issue_per_s"] == pytest.approx(
+        128 * sms * peaks["sm_mhz_under_load"] * 1e6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["flat", "grouped"])
+@pytest.mark.parametrize("cols", [128, 1000])
+def test_scan_kernels_match_plain(card, variant, cols):
+    from gsplat_tpu_torch.utils import scan_probe
+    x = scan_probe.probe_input(card, cols)
+    kernel = scan_probe.KERNELS[variant]
+    before = kernel.launches
+    for op in ("prod", "sum"):
+        got = scan_probe.scan(x, op, variant)
+        want = scan_probe._scan_plain(x, op, variant)
+        ref = (torch.cumprod if op == "prod" else torch.cumsum)(x.double(), 0)
+        torch.cuda.synchronize()
+        # the plain version's combines in the kernel's order
+        assert (got - want).abs().max().item() <= (1e-7 if op == "prod"
+                                                   else 1e-5)
+        assert (got.double() - ref).abs().max().item() <= (
+            1e-5 if op == "prod" else 1e-3)
+    for reps in (1, 64):
+        got = scan_probe.scan_rounds(x, variant, reps)
+        want = scan_probe._rounds_plain(x, variant)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-6
+    assert kernel.launches == before + 4

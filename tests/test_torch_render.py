@@ -309,8 +309,16 @@ def test_default_device_is_the_card():
 
 @pytest.mark.parametrize("impl", ["dense"])
 def test_later_slices_raise(impl):
+    """The dense slice is in: ``impl='dense'`` renders a small scene and
+    refuses past 2^30 pixel-gaussian pairs, as JAX does; an impl no slice
+    brings raises."""
     scene = tsynthetic.random_scene(10, device=CPU)
     cam = tcameras.look_at_camera((0, 0, -3.0), (0, 0, 0), width=32,
                                   height=32)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tapi.render(scene, cam, impl=impl, device=CPU)
+    out = tapi.render(scene, cam, impl=impl, device=CPU)
+    assert out["image"].shape == (32, 32, 3) and int(out["num_dropped"]) == 0
+    with pytest.raises(ValueError, match="small-scene test oracle"):
+        tapi.render(scene, cam.resized(1 << 15, 1 << 15), impl=impl,
+                    device=CPU)
+    with pytest.raises(ValueError, match="unknown impl"):
+        tapi.render(scene, cam, impl="tpu", device=CPU)
