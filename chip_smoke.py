@@ -31,7 +31,12 @@ P. the probes: ``python -m gsplat_tpu_torch.utils.roofline``'s path (the
    CPU's (within 1e-3 of each tensor's peak); B5 against its plain version
    (image, T and best weight within 1e-5, labels equal, per-instance rows
    within 1e-5 and zero past the last tile), and both label votes on the
-   card against the CPU on two small scenes;
+   card against the CPU on two small scenes; then B5 and B2 against their
+   plain versions (the same bars) on the thin-splat frame
+   (``synthetic.thin_splats_projection``: 3,000 thin, rotated, high-opacity
+   splats on the 16-px grid lines, 200x136), the skip test's hardest input;
+   B5's and B2's registers and resident blocks an SM are logged after the
+   build, each frame's tile lengths (max, p99, median) beside its checks;
 3. the serving path at real size: a 2M-gaussian scene written to PLY, loaded
    back through ``scene_from_ply`` and rendered with labels from 8 orbit
    views at 800x608 through ``render``; outputs finite and covered, nothing
@@ -96,7 +101,7 @@ from gsplat_tpu_torch.io.cameras import (look_at_camera, orbit_cameras,
 from gsplat_tpu_torch.io.ply import (load_scene, read_ply, scene_from_ply,
                                      scene_to_ply)
 from gsplat_tpu_torch.io.splat_format import importance, write_splat
-from gsplat_tpu_torch.io.synthetic import random_scene
+from gsplat_tpu_torch.io.synthetic import random_scene, thin_splats_projection
 from gsplat_tpu_torch.label import vote
 from gsplat_tpu_torch.label.adapters import _nearest_resize
 from gsplat_tpu_torch.models import densify, trainer
@@ -207,13 +212,15 @@ def cuda_ms_once(fn):
 class Frame:
     """Every intermediate of one render, so each stage can be run alone."""
 
-    def __init__(self, scene, cam):
+    def __init__(self, scene, cam, proj=None, labels=None):
         self.scene, self.cam = scene, cam
-        self.camp = CameraParams.from_camera(cam, scene.device)
         self.tx, self.ty = tile_grid(cam.width, cam.height, RC.tile_size)
         self.num_tiles = self.tx * self.ty
         self.db = 32 - tiles.depth_shift(self.num_tiles)
-        self.proj = self.project()
+        if proj is None:
+            self.camp = CameraParams.from_camera(cam, scene.device)
+            proj, labels = self.project(), scene.labels
+        self.proj = proj
         self.qd = tiles.depth_qkeys(self.proj.depth, self.proj.valid,
                                     self.num_tiles)
         self.bb = tiles.tile_bboxes(self.proj, tiles_x=self.tx,
@@ -222,11 +229,18 @@ class Frame:
         self.binning = tiles.bin_tiles(self.proj, tiles_x=self.tx,
                                        tiles_y=self.ty,
                                        tile_size=RC.tile_size)
-        self.ptab = pack_table(self.proj, scene.labels)
+        self.ptab = pack_table(self.proj, labels)
         self.counts = (self.binning.tile_bounds[1:]
                        - self.binning.tile_bounds[:-1])
         self._work = {}
         self._bwd_args = {}
+
+    @classmethod
+    def from_projection(cls, proj, labels, width, height):
+        """A frame of a given projection (no scene, so no ``project`` or
+        ``render``; the camera gives the frame's size alone)."""
+        return cls(None, look_at_camera((0, 0, -3.0), (0, 0, 0), width=width,
+                                        height=height), proj, labels)
 
     def project(self):
         return project(self.scene, self.camp, self.cam.width,
@@ -290,6 +304,14 @@ class Frame:
                     slots=self.bb.total,
                     tight=int(self.binning.num_instances),
                     tile_max=int(c.max()), tile_median=float(np.median(c)))
+
+    def tile_lengths(self) -> dict:
+        """Max, p99, median and mean instances a tile: the busiest tile's
+        block sets B2's time, and its four sub-tile blocks B5's."""
+        c = self.counts.double()
+        return {"max": int(c.max()), "p99": float(torch.quantile(c, 0.99)),
+                "median": float(c.median()), "mean": float(c.mean()),
+                "tiles": self.num_tiles}
 
     def b4_bound(self, rates):
         n = self.proj.u.shape[0]
@@ -407,7 +429,7 @@ def check_b5(frame: Frame, tag: str) -> float:
     tight = int(frame.binning.num_instances)
     tail_zero = not bool(inst_w[tight:].any())
     log({"check": "B5 blend_tiles_vis vs plain", "frame": tag,
-         "max_abs_err": errs,
+         "tile_lengths": frame.tile_lengths(), "max_abs_err": errs,
          "label_mismatches": int((out.label != ref.label).sum()),
          "rows": inst_w.numel(), "rows_past_last_tile": inst_w.numel() - tight,
          "rows_past_last_tile_zero": tail_zero,
@@ -528,7 +550,8 @@ def check_b2(frame: Frame, tag: str) -> float:
         rel = diff / ref[:, :9].abs().amax(0).clamp_min(1e-30)
         zeros_equal = bool(torch.equal((got == 0).all(1), (ref == 0).all(1)))
         log({"check": "B2 blend_tiles_bwd vs plain", "frame": tag,
-             "early_stop_eps": eps, "rows": got.shape[0],
+             "early_stop_eps": eps, "tile_lengths": frame.tile_lengths(),
+             "rows": got.shape[0],
              "zero_rows": int((ref == 0).all(1).sum()),
              "max_abs_err": float(diff.max()),
              "max_err_over_column_peak": rel.tolist(),
@@ -1291,6 +1314,9 @@ def main(argv=None) -> int:
         for line in info["ptxas"].splitlines():
             if "ptxas info" in line or "spill" in line:
                 log(f"[{name}] {line.strip()}")
+    log({"occupancy": {name: _kernels.occupancy(name)
+                       for name in ("blend_vis", "blend_bwd")},
+         "sms": torch.cuda.get_device_properties(0).multi_processor_count})
 
     # P. the probes: the card's rates (P1) and the scans (P2)
     peaks, probe_rows = probe_phase(device, card)
@@ -1317,6 +1343,11 @@ def main(argv=None) -> int:
     check_gradients(device)
     err_b5 = check_b5(bench, "bench")
     check_small_labeling(device)
+    thin = Frame.from_projection(*thin_splats_projection(
+        3000, width=200, height=136, seed=7, device=device), 200, 136)
+    err_b5 = max(err_b5, check_b5(thin, "thin splats"))
+    err_b2 = max(err_b2, check_b2(thin, "thin splats"))
+    del thin
 
     # 3. serving path: 2M gaussians through PLY, 8 views, with labels
     t0 = time.perf_counter()

@@ -52,7 +52,7 @@ SIGNATURES = {
                   + [_P] * 2),
     "cumsum_rows": ("gsplat_cumsum_rows", [_P, _I, _P, _I, _P, _P]),
     "blend_vis": ("gsplat_blend_vis",
-                  [_P] * 3 + [_I] * 6 + [_F] * 2 + [_I] + [_P] * 5
+                  [_P] * 3 + [_I] * 5 + [_F] * 2 + [_I] + [_P] * 5
                   + [_I, _P]),
     "peak_probe": ("gsplat_peak_probe",
                    [_I, _P, _I, _P, _I, _I, _F, _F, _P]),
@@ -131,6 +131,21 @@ def function(name: str):
         fn.restype = ctypes.c_int
         _functions[name] = fn
     return fn
+
+
+def occupancy(name: str) -> dict:
+    """Registers, local (spill) bytes, static shared memory and resident
+    blocks an SM of the kernel of ``csrc/<name>.cu``, from its
+    ``gsplat_<name>_occupancy`` entry point (B5 and B2 have one)."""
+    function(name)
+    fn = getattr(ctypes.CDLL(str(library_path(name))),
+                 f"gsplat_{name}_occupancy")
+    fn.argtypes = [_P]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    check(f"{name} occupancy", fn(out))
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "blocks_per_sm"), out))
 
 
 def stream(device: torch.device) -> int:

@@ -1,6 +1,6 @@
-// The forward tile blend shared by kernels B1 (blend_fwd.cu) and B5
-// (blend_vis.cu): front-to-back compositing of one image tile per block, with
-// the best-weight label channel; B5 adds each instance's max blend weight.
+// The forward tile blend of kernel B1 (blend_fwd.cu): front-to-back
+// compositing of one image tile per block, with the best-weight label
+// channel. Kernel B5 has its own kernel (blend_vis.cu).
 //
 // Design: one block of 256 threads per tile (tile_size^2 <= 1024 pixels, at
 // most 4 per thread, pixel p = threadIdx.x + k * 256 so that stores of one
@@ -15,28 +15,16 @@
 // and the oracle. Output goes straight to image layout, cropped at the image
 // edge; an empty tile writes T = 1, RGB = 0, label UNLABELED.
 //
-// kVis = false (B1): early stop keeps the JAX rule, a batch is skipped only
-// when the whole tile's max T is below early_eps (__syncthreads_count at each
-// batch boundary).
-//
-// kVis = true (B5): no early stop (the JAX kernel tests only the window
-// length, so every instance of every tile is composited), and the
-// per-instance max. For instance i of a batch each thread forms the max of
-// w = T * alpha over its pixels (0 where alpha is cut), a warp reduces it
-// with one __reduce_max_sync on the f32 bit pattern (exact and order-free
-// because w >= 0, where the unsigned order of the bits is the order of the
-// values), and lane 0 stores it in s_wmax[warp][i]. After the batch, thread i
-// takes the max over the 8 warps and writes row b0 + i of inst_w. The max
-// runs over all tile_size^2 pixels of the tile, also those past the image's
-// right and bottom edges, as the JAX kernel's whole-tile blocks do; only the
-// image stores are cropped.
+// Early stop keeps the JAX rule: a batch is skipped only when the whole
+// tile's max T is below early_eps (__syncthreads_count at each batch
+// boundary). blend_fwd.cu instantiates blend_tile_kernel<false>; kVis =
+// true is refused.
 //
 // Exactness: alpha is computed as blend_pallas.py::_chunk_alphas does
-// (tile-local dx, dy, the same q, expf, not __expf), and the including files
-// are built with -fmad=false, so the alpha_min cut agrees with the plain
-// versions (render/blend.py) and the two differ only where the compositing
-// is associated differently; max is exact, so B5's rows equal the plain
-// version's wherever w does.
+// (tile-local dx, dy, the same q, expf, not __expf), and the including file
+// is built with -fmad=false, so the alpha_min cut agrees with the plain
+// version (render/blend.py) and the two differ only where the compositing
+// is associated differently.
 
 #pragma once
 
@@ -45,7 +33,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPixelsPerThread = 4;   // tile_size^2 <= 1024
 constexpr int kCols = 10;                // staged parameter columns
 constexpr int kUnlabeled = -1;
@@ -54,8 +41,8 @@ constexpr int kUnlabeled = -1;
 constexpr int P_MX = 0, P_MY = 1, P_CA = 2, P_CB = 3, P_CC = 4, P_OP = 5,
               P_R = 6, P_G = 7, P_B = 8, P_LABEL = 10, PARAM_ROWS = 16;
 
-// Dynamic shared memory: kCols columns of `chunk` floats, and with kVis the
-// [8][chunk] warp maxima after them.
+// Dynamic shared memory: kCols columns of `chunk` floats. inst_w is not
+// read; blend_fwd.cu passes nullptr.
 template <bool kVis>
 __global__ void __launch_bounds__(kThreads) blend_tile_kernel(
     const float* __restrict__ ptab, const int* __restrict__ inst_gauss,
@@ -64,6 +51,7 @@ __global__ void __launch_bounds__(kThreads) blend_tile_kernel(
     int with_labels, float* __restrict__ rgb, float* __restrict__ trans,
     float* __restrict__ best_w, int* __restrict__ label,
     float* __restrict__ inst_w) {
+  static_assert(!kVis, "B5 has its own kernel in blend_vis.cu");
   extern __shared__ float smem[];
   float* s_mx = smem;
   float* s_my = s_mx + chunk;
@@ -75,7 +63,6 @@ __global__ void __launch_bounds__(kThreads) blend_tile_kernel(
   float* s_g = s_r + chunk;
   float* s_b = s_g + chunk;
   float* s_lab = s_b + chunk;
-  unsigned* s_wmax = reinterpret_cast<unsigned*>(s_lab + chunk);
 
   const int tile = blockIdx.x;
   const int trow = tile / tiles_x;
@@ -83,8 +70,6 @@ __global__ void __launch_bounds__(kThreads) blend_tile_kernel(
   const float x0f = static_cast<float>(tcol * tile_size);
   const float y0f = static_cast<float>(trow * tile_size);
   const int npix = tile_size * tile_size;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
 
   float px[kMaxPixelsPerThread], py[kMaxPixelsPerThread];
   float T[kMaxPixelsPerThread], cr[kMaxPixelsPerThread],
@@ -106,16 +91,12 @@ __global__ void __launch_bounds__(kThreads) blend_tile_kernel(
   for (int b0 = start; b0 < end; b0 += chunk) {
     // Also the barrier that keeps the previous batch's readers ahead of
     // this batch's writers of shared memory.
-    if constexpr (kVis) {
-      __syncthreads();
-    } else {
-      float tmax = 0.0f;
+    float tmax = 0.0f;
 #pragma unroll
-      for (int k = 0; k < kMaxPixelsPerThread; ++k) {
-        if (threadIdx.x + k * kThreads < npix) tmax = fmaxf(tmax, T[k]);
-      }
-      if (__syncthreads_count(tmax >= early_eps) == 0) break;
+    for (int k = 0; k < kMaxPixelsPerThread; ++k) {
+      if (threadIdx.x + k * kThreads < npix) tmax = fmaxf(tmax, T[k]);
     }
+    if (__syncthreads_count(tmax >= early_eps) == 0) break;
     const int n = min(chunk, end - b0);
     for (int i = threadIdx.x; i < n; i += kThreads) {
       const float* row =
@@ -135,7 +116,6 @@ __global__ void __launch_bounds__(kThreads) blend_tile_kernel(
     for (int i = 0; i < n; ++i) {
       const float mx = s_mx[i], my = s_my[i], ca = s_ca[i], cb2 = s_cb2[i],
                   cc = s_cc[i], op = s_op[i];
-      float wmax = 0.0f;
 #pragma unroll
       for (int k = 0; k < kMaxPixelsPerThread; ++k) {
         if (threadIdx.x + k * kThreads >= npix) continue;
@@ -152,23 +132,8 @@ __global__ void __launch_bounds__(kThreads) blend_tile_kernel(
             bw[k] = w;
             lab[k] = __float2int_rn(s_lab[i]);
           }
-          if constexpr (kVis) wmax = fmaxf(wmax, w);
           T[k] = T[k] * (1.0f - alpha);
         }
-      }
-      if constexpr (kVis) {
-        const unsigned m =
-            __reduce_max_sync(0xffffffffu, __float_as_uint(wmax));
-        if (lane == 0) s_wmax[warp * chunk + i] = m;
-      }
-    }
-    if constexpr (kVis) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < n; i += kThreads) {
-        unsigned m = s_wmax[i];
-#pragma unroll
-        for (int j = 1; j < kWarps; ++j) m = max(m, s_wmax[j * chunk + i]);
-        inst_w[b0 + i] = __uint_as_float(m);
       }
     }
   }

@@ -10,9 +10,12 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
+from gsplat_tpu_torch.config import RasterConfig
+from gsplat_tpu_torch.render.projection import Projected
 from gsplat_tpu_torch.scene import (DeviceLike, GaussianScene, color_to_dc,
-                                    scene_from_numpy)
+                                    resolve_device, scene_from_numpy)
 
 
 def random_scene(
@@ -84,3 +87,62 @@ def grid_scene(side: int, *, spacing: float = 0.2, scale: float = 0.05,
         means, np.full((n, 3), np.log(scale)), quats,
         np.full((n,), opacity), color_to_dc(colors)[:, None, :],
         np.arange(n, dtype=np.int32), device=device)
+
+
+def thin_splats_projection(
+    n: int,
+    *,
+    width: int,
+    height: int,
+    seed: int = 0,
+    device: DeviceLike = None,
+) -> tuple[Projected, torch.Tensor]:
+    """A projected frame of ``n`` high-opacity, thin, rotated splats on the
+    16-px grid lines (the blend kernels' sub-tile and 32-px tile borders),
+    and their [N] i32 labels (0-15): the hardest input for the skip test of the
+    blend kernels (``csrc/blend_cull.cuh``). Means lie within 2 px of a
+    vertical line, a horizontal one or a crossing; covariances are 4-40 px
+    along a random angle and 0.2-1 px across it, plus the projection's 0.3
+    px^2 blur, but a tenth have no blur and 0.05-0.2 px across (conics too
+    thin for the rectangle test); opacity 0.9-1, but a tenth lie within 5%
+    above ``alpha_min``. The extents, cutoff and validity follow
+    ``render/projection.py`` at the default ``RasterConfig``."""
+    alpha_min, sigma_cutoff = RasterConfig.alpha_min, RasterConfig.sigma_cutoff
+    rng = np.random.default_rng(seed)
+    line_x = rng.integers(0, width // 16 + 1, n) * 16 + rng.uniform(-2, 2, n)
+    line_y = rng.integers(0, height // 16 + 1, n) * 16 + rng.uniform(-2, 2, n)
+    kind = rng.integers(0, 3, n)   # on a vertical line, a horizontal, both
+    u = np.where(kind == 1, rng.uniform(0, width, n), line_x)
+    v = np.where(kind == 0, rng.uniform(0, height, n), line_y)
+    ang = rng.uniform(0.0, np.pi, n)
+    s_long = rng.uniform(4.0, 40.0, n)
+    s_short = rng.uniform(0.2, 1.0, n)
+    bare = rng.random(n) < 0.1
+    s_short = np.where(bare, rng.uniform(0.05, 0.2, n), s_short)
+    blur = np.where(bare, 0.0, 0.3)
+    c, s = np.cos(ang), np.sin(ang)
+    a = c * c * s_long ** 2 + s * s * s_short ** 2 + blur
+    b = c * s * (s_long ** 2 - s_short ** 2)
+    d = s * s * s_long ** 2 + c * c * s_short ** 2 + blur
+    det = a * d - b * b
+    opacity = np.where(rng.random(n) < 0.1,
+                       alpha_min * (1.0 + rng.uniform(0.0, 0.05, n)),
+                       rng.uniform(0.9, 1.0, n))
+    cutoff = np.minimum(np.sqrt(2.0 * np.log(np.maximum(
+        opacity / alpha_min, 1.0))), sigma_cutoff)
+    mid = 0.5 * (a + d)
+    lam1 = mid + np.sqrt(np.maximum(mid * mid - det, 0.0))
+    ex, ey = cutoff * np.sqrt(a), cutoff * np.sqrt(d)
+    rgb = rng.uniform(0.0, 1.0, (n, 3))
+    labels = rng.integers(0, 16, n).astype(np.int32)
+    dev = resolve_device(device)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    valid = ((opacity >= alpha_min) & (u + ex > 0) & (u - ex < width)
+             & (v + ey > 0) & (v - ey < height))
+    proj = Projected(
+        u=f(u), v=f(v), ca=f(d / det), cb=f(-b / det), cc=f(a / det),
+        depth=f(rng.uniform(1.0, 10.0, n)), radius=f(cutoff * np.sqrt(lam1)),
+        ex=f(ex), ey=f(ey), qmax=f(cutoff * cutoff), red=f(rgb[:, 0]),
+        green=f(rgb[:, 1]), blue=f(rgb[:, 2]), opacity=f(opacity),
+        valid=torch.as_tensor(valid, device=dev))
+    return proj, torch.as_tensor(labels, device=dev)

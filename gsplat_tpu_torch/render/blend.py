@@ -19,6 +19,10 @@ max T is below ``early_eps``. The backward walks the same batches front to
 back with the suffix-sum trick of ``_bwd_win_kernel``: with the per-pixel
 seed D = C.dC + T_final.dT and the inclusive prefix p of w (c.dC), the
 suffix is S = D - p and dalpha = T (c.dC) - S / (1 - alpha).
+
+B5 and B2 pass over the instance-pixel pairs that certainly fail the alpha
+cut (``csrc/blend_cull.cuh``); :func:`_cull_q_cut` and
+:func:`_cull_rect_skip` mirror that test in plain PyTorch for the tests.
 """
 
 from __future__ import annotations
@@ -42,6 +46,58 @@ MAX_TILE_PIXELS = 1024
 # the 48 KB a block gets without opting in (B2 stages 64 instances at a time
 # whatever the chunk)
 MAX_CHUNK = 1024
+
+# Margins of the skip test of B5 and B2 (csrc/blend_cull.cuh, where the
+# reasons are): on the cut's q, relative to 1 + |ln op| + |ln alpha_min|; on
+# a rectangle's least q, relative to the terms' magnitude; on the conic's
+# determinant, relative to ca * cc.
+CULL_CUT_MARGIN = 1e-4
+CULL_RECT_MARGIN = 1e-5
+CULL_DET_MARGIN = 1e-5
+
+
+def _cull_q_cut(op: torch.Tensor, alpha_min: float) -> torch.Tensor:
+    """Plain mirror of ``blend_cull.cuh::q_cut``, the C code's f32
+    operations in its order: the q beyond which ``op * exp(-q / 2)`` is
+    certainly below ``alpha_min``. Used by the tests."""
+    lop = torch.log(op)
+    lam = torch.log(torch.tensor(alpha_min, dtype=torch.float32,
+                                 device=op.device))
+    qc = 2.0 * (lop - lam)
+    return qc + CULL_CUT_MARGIN * (1.0 + lop.abs() + lam.abs())
+
+
+def _cull_rect_skip(mx, my, ca, cb, cc, thr, cx0, cx1, cy0, cy1
+                    ) -> torch.Tensor:
+    """Plain mirror of ``blend_cull.cuh::rect_skips``: True where no pixel
+    centre of the rectangle [cx0, cx1] x [cy0, cy1] (tile-local, as the
+    kernels' px, py) can pass the cut of an instance with tile-local mean
+    (mx, my), conic (ca, cb, cc) and ``thr`` = :func:`_cull_q_cut`. f32
+    tensors that broadcast; ``fmax``/``fmin`` as C's. Used by the tests."""
+    fmax, fmin = torch.fmax, torch.fmin
+    acc = ca * cc
+    definite = (ca > 0.0) & (acc - cb * cb > CULL_DET_MARGIN * acc)
+    x0, x1 = cx0 - mx, cx1 - mx
+    y0, y1 = cy0 - my, cy1 - my
+    inside = (x0 <= 0.0) & (0.0 <= x1) & (y0 <= 0.0) & (0.0 <= y1)
+    ncb = -cb
+    cb2 = 2.0 * cb
+    clip = lambda x, lo, hi: fmin(fmax(x, lo), hi)
+
+    def edge_x(ex):
+        ys = clip(ncb * ex / cc, y0, y1)
+        return (ca * ex + cb2 * ys) * ex + cc * ys * ys
+
+    def edge_y(ey):
+        xs = clip(ncb * ey / ca, x0, x1)
+        return (cc * ey + cb2 * xs) * ey + ca * xs * xs
+
+    m = fmin(fmin(edge_x(x0), edge_x(x1)), fmin(edge_y(y0), edge_y(y1)))
+    m = torch.where(inside, torch.zeros_like(m), m)
+    ax = fmax(x0.abs(), x1.abs())
+    ay = fmax(y0.abs(), y1.abs())
+    mag = (ca * ax + 2.0 * cb.abs() * ay) * ax + cc * ay * ay
+    return definite & (m - CULL_RECT_MARGIN * mag > thr)
 
 
 class BlendOutput(NamedTuple):
@@ -232,12 +288,17 @@ def blend_tiles_vis(ptab: torch.Tensor, inst_gauss: torch.Tensor,
     filtered slots past the last tile). Not differentiable.
 
     Replaces ``gsplat_tpu/render/blend_pallas.py::_fwd_win_vis_kernel``. On
-    the card it launches ``csrc/blend_vis.cu`` (B1's design: one 256-thread
-    block per tile, batches of ``chunk`` instances staged in shared memory;
-    per instance a warp max on the f32 bit pattern and a max over the 8
-    warps; it spends an exp and f32 operations on every instance-pixel pair,
-    none skipped, where only the pairs past the alpha cut need the exp); CPU
-    tensors take the plain version."""
+    the card it launches ``csrc/blend_vis.cu``: one 256-thread block per
+    16x16 sub-tile (four per 32-px tile), each walking its tile's whole
+    range in batches of 256 instances; an instance whose cut ellipse misses
+    the sub-tile is dropped before its colour is gathered, a warp passes over
+    one that misses its 16x2 strip, and a pixel tests q before the exp
+    (``csrc/blend_cull.cuh``: conservative with a stated margin, so the
+    outputs equal the plain version's). Each block's per-instance max goes
+    to the row with an atomic max on the f32 bits. What still bounds it on
+    the card: each sub-tile block stages and tests its whole tile's range,
+    so the busiest tile sets the time. B5 has no early stop, so ``chunk``
+    does not reach the kernel. CPU tensors take the plain version."""
     _check_stream("blend_tiles_vis", ptab, inst_gauss, tile_bounds,
                   tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
                   width=width, height=height, chunk=chunk)
@@ -249,6 +310,8 @@ def blend_tiles_vis(ptab: torch.Tensor, inst_gauss: torch.Tensor,
         return _blend_tiles_vis_plain(ptab, inst_gauss, tile_bounds, **kw)
     if dev.type != "cuda":
         raise ValueError(f"blend_tiles_vis: no kernel for {dev}")
+    if ptab.data_ptr() % 16:
+        raise ValueError("blend_tiles_vis takes a 16-byte aligned table")
     total = inst_gauss.shape[0]
     rgb = torch.empty(height, width, 3, device=dev)
     trans = torch.empty(height, width, device=dev)
@@ -258,7 +321,7 @@ def blend_tiles_vis(ptab: torch.Tensor, inst_gauss: torch.Tensor,
     inst_w = torch.empty(total, device=dev)
     fn = _kernels.function("blend_vis")
     err = fn(ptab.data_ptr(), inst_gauss.data_ptr(), tile_bounds.data_ptr(),
-             tiles_x * tiles_y, tiles_x, tile_size, width, height, chunk,
+             tiles_x * tiles_y, tiles_x, tile_size, width, height,
              alpha_min, alpha_max, int(with_labels), rgb.data_ptr(),
              trans.data_ptr(), best_w.data_ptr() if with_labels else None,
              label.data_ptr() if with_labels else None, inst_w.data_ptr(),
@@ -371,11 +434,16 @@ def blend_tiles_bwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
     early stop skipped, and of filtered slots past the last tile, are zero.
 
     Replaces ``gsplat_tpu/render/blend_pallas.py::_bwd_win_kernel``. On the
-    card it launches ``csrc/blend_bwd.cu`` (one 256-thread block per tile,
-    B1's batches walked front to back, per-instance sums by warp shuffles
-    and a fixed-order sum over warps; bound by the exp and f32 operations
-    of every instance-pixel pair, and in this design by the reduction);
-    CPU tensors take the plain version."""
+    card it launches ``csrc/blend_bwd.cu``: one 256-thread block per tile
+    (the early stop needs the whole tile's T), B1's batches walked front to
+    back in sub-batches of 64; a warp passes over an instance whose cut
+    ellipse misses its 32x4 strip and a pixel tests q before the exp
+    (``csrc/blend_cull.cuh``: conservative with a stated margin, so T and
+    every early-stop decision equal B1's); a live warp sums its 9 partials
+    with a 12-shuffle halving butterfly, and the warps' sums are added in a
+    fixed order. What still bounds it on the card: one block per tile, so
+    the busiest tile sets the time. CPU tensors take the plain
+    version."""
     _check_stream("blend_tiles_bwd", ptab, inst_gauss, tile_bounds,
                   tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
                   width=width, height=height, chunk=chunk)
@@ -405,9 +473,9 @@ def blend_tiles_bwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
     fn = _kernels.function("blend_bwd")
     err = fn(ptab.data_ptr(), inst_gauss.data_ptr(), tile_bounds.data_ptr(),
              num_tiles, tiles_x, tile_size, width, height, chunk, alpha_min,
-             alpha_max, early_eps, rgb.data_ptr(), transmittance.data_ptr(),
-             drgb.data_ptr(), dtrans.data_ptr(), total, drows.data_ptr(),
-             _kernels.stream(dev))
+             alpha_max, early_eps, rgb.data_ptr(),
+             transmittance.data_ptr(), drgb.data_ptr(), dtrans.data_ptr(),
+             total, drows.data_ptr(), _kernels.stream(dev))
     blend_tiles_bwd.launches += 1
     _kernels.check("blend_bwd", err)
     return drows

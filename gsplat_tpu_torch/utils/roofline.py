@@ -67,10 +67,16 @@ F32_LANES_PER_SM = 128
 # for bit). The cut alpha >= alpha_min is a test of q alone (q <= the
 # gaussian's 2 ln(opacity / alpha_min)), so only the pairs past the cut need
 # an exp; the q test itself is needed only for the pixels inside each
-# instance's cutoff box (the projection's ex, ey half-extents, outside which
-# no alpha passes the cut). Per tested (instance, pixel) pair: dx, dy (2),
+# instance's cutoff box (the projection's ex, ey half-extents). That box
+# holds the alpha cut's ellipse only because config.sigma_cutoff = 3.33 >=
+# sqrt(2 ln 255) = 3.329, the cutoff at opacity 1 and alpha_min 1/255, and
+# only up to float rounding: a pair past the cut outside the box is
+# possible at the box's edge, so blend_pairs counts a tested pair as one
+# inside the box or past the cut, and the counts hold either way. Per
+# tested (instance, pixel) pair: dx, dy (2),
 # q = (ca dx + cb2 dy) dx + cc dy dy (5: cb2 dy, fma(ca, dx, .), cc dy,
-# its product with dy, fma(., dx, .)) and the compare (1); per live pair (alpha past the cut): -q/2, the opacity product
+# its product with dy, fma(., dx, .)) and the compare (1); per live pair
+# (alpha past the cut): -q/2, the opacity product
 # and the clamp (3), and for B1 the weight (1), RGB accumulation (3 FMAs),
 # the label test (1) and the T update (1).
 Q_TEST_OPS = 8

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (B4 ``enum_keys``, B1 ``blend_tiles_fwd``, B2
 ``blend_tiles_bwd``, B3 ``cumsum_rows``, B5 ``blend_tiles_vis``), their
-wrappers, and the vote on the card against the CPU.
+wrappers, the skip test of B5 and B2 (``csrc/blend_cull.cuh``) through its
+plain mirror, and the vote on the card against the CPU.
 
 This file imports neither jax nor ``gsplat_tpu``, so on a machine with a card
 and only PyTorch it runs without the JAX harness of ``conftest.py``:
@@ -14,6 +15,8 @@ skip; on the card each kernel is held against its plain version.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.config import UNLABELED
@@ -199,6 +202,160 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
             blend.cumsum_rows(bad_x)
 
 
+# --- the skip test of B5 and B2 (csrc/blend_cull.cuh), through its mirror ---
+
+ALPHA_MIN, ALPHA_MAX = 1 / 255, 0.999
+TILE = 32
+
+
+def _conic(ang, s1, s2, blur):
+    """f32 (ca, cb, cc): the inverse of the 2D covariance with sigmas s1
+    along angle ``ang`` and s2 across it, plus ``blur`` px^2 on the
+    diagonal (numpy arrays)."""
+    c, s = np.cos(ang), np.sin(ang)
+    a = c * c * s1 ** 2 + s * s * s2 ** 2 + blur
+    b = c * s * (s1 ** 2 - s2 ** 2)
+    d = s * s * s1 ** 2 + c * c * s2 ** 2 + blur
+    det = a * d - b * b
+    return [torch.from_numpy(np.asarray(x, np.float32))
+            for x in (d / det, -b / det, a / det)]
+
+
+def _conics(rng, n, thin):
+    """[n] conics at random angles: round-ish with the projection's 0.3
+    px^2 blur, or thin (5-60 px by 0.05-0.6 px, a third without blur, so
+    that ca cc - cb^2 comes near 0)."""
+    ang = rng.uniform(0, np.pi, n)
+    if thin:
+        s1, s2 = rng.uniform(5, 60, n), rng.uniform(0.05, 0.6, n)
+        blur = np.where(rng.random(n) < 1 / 3, 0.0, 0.3)
+    else:
+        s1 = rng.uniform(0.3, 12, n)
+        s2, blur = s1 * rng.uniform(0.3, 1.0, n), 0.3
+    return _conic(ang, s1, s2, blur)
+
+
+def _tile_pixels(mx, my, ca, cb, cc, op):
+    """q and alpha at every pixel centre of a 32-px tile, [n, 32 (row), 32
+    (col)], with the blend kernels' operations (render/blend.py
+    _blend_plain)."""
+    pc = torch.arange(TILE, dtype=torch.float32) + 0.5
+    e = lambda t: t[:, None, None]
+    dx = pc[None, None, :] - e(mx)
+    dy = pc[None, :, None] - e(my)
+    q = (e(ca) * dx + e(2.0 * cb) * dy) * dx + e(cc) * dy * dy
+    return q, torch.clamp_max(e(op) * torch.exp(-0.5 * q), ALPHA_MAX)
+
+
+def _assert_conservative(mx, my, ca, cb, cc, op, c0, c1, r0, r1):
+    """No pixel the mirror skips (by rectangle or by its own q) passes the
+    cut. Returns (skip, min q over the rectangle, q_cut)."""
+    thr = blend._cull_q_cut(op, ALPHA_MIN)
+    f = lambda t: t.to(torch.float32) + 0.5
+    skip = blend._cull_rect_skip(mx, my, ca, cb, cc, thr, f(c0), f(c1),
+                                 f(r0), f(r1))
+    q, alpha = _tile_pixels(mx, my, ca, cb, cc, op)
+    idx = torch.arange(TILE)
+    e = lambda t: t[:, None, None]
+    inrect = ((idx[None, None, :] >= e(c0)) & (idx[None, None, :] <= e(c1))
+              & (idx[None, :, None] >= e(r0)) & (idx[None, :, None] <= e(r1)))
+    passes = alpha >= ALPHA_MIN
+    assert not (passes & inrect & e(skip)).any()
+    assert not (passes & (q > e(thr))).any()
+    qmin = torch.where(inrect, q, torch.full_like(q, float("inf")))
+    return skip, qmin.amin(dim=(1, 2)), thr
+
+
+def _rects(rng, n):
+    c0 = rng.integers(0, TILE, n)
+    c1 = np.minimum(c0 + rng.integers(0, TILE, n), TILE - 1)
+    r0 = rng.integers(0, TILE, n)
+    r1 = np.minimum(r0 + rng.integers(0, TILE, n), TILE - 1)
+    return c0, c1, r0, r1
+
+
+CULL_CASES = ["round", "thin", "opacity_near_one", "opacity_near_alpha_min",
+              "on_the_cut", "indefinite"]
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_cull_skips_only_pixels_below_the_cut(case):
+    """Seeded random instances and rectangles of a 32-px tile: means on and
+    off the rectangle (a quarter inside, the rest up to 48 px outside), the
+    conics and opacities of the case. "on_the_cut" (thin conics, so the
+    terms of q cancel) sets each opacity so that the rectangle's best pixel
+    lies within 1e-6 (relative) of alpha_min, on either side; "indefinite"
+    takes conics no projection makes (cb^2 > ca cc, or ca <= 0), which the
+    rectangle test must never skip by its edge minima."""
+    rng = np.random.default_rng(CULL_CASES.index(case))
+    n = 3000
+    ca, cb, cc = _conics(rng, n, thin=case in ("thin", "on_the_cut"))
+    if case == "indefinite":
+        ca, cc = (torch.from_numpy(rng.uniform(-1, 2, n).astype(np.float32))
+                  for _ in range(2))
+        cb = torch.from_numpy(rng.uniform(-3, 3, n).astype(np.float32))
+    c0, c1, r0, r1 = _rects(rng, n)
+    inside = rng.random(n) < 0.25
+    mx = np.where(inside, rng.uniform(c0, c1 + 1), rng.uniform(-48, 80, n))
+    my = np.where(inside, rng.uniform(r0, r1 + 1), rng.uniform(-48, 80, n))
+    mx, my = (torch.from_numpy(x.astype(np.float32)) for x in (mx, my))
+    c0, c1, r0, r1 = (torch.from_numpy(x) for x in (c0, c1, r0, r1))
+    if case == "opacity_near_one":
+        op = np.where(rng.random(n) < 0.2, 1.0, rng.uniform(0.99, 1.0, n))
+    elif case in ("opacity_near_alpha_min", "indefinite"):
+        op = ALPHA_MIN * (1 + np.where(rng.random(n) < 0.5, -1, 1)
+                          * 10 ** rng.uniform(-7, -1, n))
+    else:
+        op = rng.uniform(ALPHA_MIN, 1.0, n)
+    op = torch.from_numpy(op.astype(np.float32))
+    if case == "on_the_cut":
+        _, qmin, _ = _assert_conservative(mx, my, ca, cb, cc, op, c0, c1,
+                                          r0, r1)
+        keep = qmin < 2 * np.log(255.0) - 0.1   # reachable with op <= 1
+        mx, my, ca, cb, cc = (t[keep] for t in (mx, my, ca, cb, cc))
+        c0, c1, r0, r1, qmin = (t[keep] for t in (c0, c1, r0, r1, qmin))
+        jitter = torch.from_numpy(rng.uniform(-1e-6, 1e-6, int(keep.sum())))
+        op = (ALPHA_MIN * torch.exp(0.5 * qmin.double())
+              * (1 + jitter)).float()
+    skip, qmin, thr = _assert_conservative(mx, my, ca, cb, cc, op, c0, c1,
+                                           r0, r1)
+    if case == "round":
+        # and not idle: every rectangle whose least q clears the cut by 1%
+        # is skipped (these conics are all definite)
+        clear = qmin > thr * 1.01 + 0.01
+        assert clear.sum() > n / 4 and skip[clear].all()
+
+
+def test_cull_q_cut_is_tight():
+    """The per-pixel threshold lies above 2 ln(op / alpha_min) by its
+    margin and no more: at most 1e-3 (1 + |ln op| + |ln alpha_min|)."""
+    op = torch.from_numpy(np.geomspace(ALPHA_MIN, 1.0, 1000).astype(
+        np.float32))
+    thr = blend._cull_q_cut(op, ALPHA_MIN).double()
+    exact = 2 * (torch.log(op.double()) - np.log(np.float32(ALPHA_MIN)))
+    slack = thr - exact
+    scale = 1 + torch.log(op.double()).abs() + abs(np.log(ALPHA_MIN))
+    assert (slack > 0).all() and (slack <= 1e-3 * scale).all()
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(mx=st.floats(-48, 80), my=st.floats(-48, 80),
+       angle=st.floats(0, np.pi), s_long=st.floats(0.3, 60),
+       ratio=st.floats(1, 1000), blur=st.sampled_from([0.0, 0.3]),
+       op=st.floats(ALPHA_MIN * 0.99, 1.0), c0=st.integers(0, TILE - 1),
+       w=st.integers(0, TILE - 1), r0=st.integers(0, TILE - 1),
+       h=st.integers(0, TILE - 1))
+def test_cull_is_conservative_for_any_instance(mx, my, angle, s_long, ratio,
+                                               blur, op, c0, w, r0, h):
+    ca, cb, cc = _conic(np.array([angle]), np.array([s_long]),
+                        np.array([s_long / ratio]), blur)
+    t = lambda x: torch.tensor([x], dtype=torch.float32)
+    i = lambda x: torch.tensor([x])
+    _assert_conservative(t(mx), t(my), ca, cb, cc, t(op), i(c0),
+                         i(min(c0 + w, TILE - 1)), i(r0),
+                         i(min(r0 + h, TILE - 1)))
+
+
 def test_kernel_libraries_are_keyed_by_source():
     paths = {name: _kernels.library_path(name) for name in _kernels.SIGNATURES}
     assert len(set(paths.values())) == len(paths)
@@ -280,25 +437,27 @@ def test_render_on_card_matches_cpu(card):
     assert (got["label_map"].cpu() == want["label_map"]).float().mean() >= 0.999
 
 
-def _frame_stream(device, tile_size):
-    scene, cam, proj, tx, ty = _card_frame(device, tile_size)
+def _thin_stream(device, tile_size, width=200, height=136):
+    """synthetic.thin_splats_projection's frame of 3,000 thin, rotated,
+    high-opacity splats on the 16-px grid lines, binned: the skip test's
+    hardest input. 200x136 is no multiple of 32."""
+    proj, labels = synthetic.thin_splats_projection(
+        3000, width=width, height=height, seed=7, device=device)
+    tx, ty = projection.tile_grid(width, height, tile_size)
     b = tiles.bin_tiles(proj, tiles_x=tx, tiles_y=ty, tile_size=tile_size)
-    return scene, cam, proj, tx, ty, b, api.pack_table(proj, scene.labels)
+    return tx, ty, b, api.pack_table(proj, labels)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("eps", [0.0, 1e-5])
-@pytest.mark.parametrize("tile_size,chunk", [(32, 64), (16, 128)])
-def test_blend_bwd_kernel_matches_plain(card, eps, tile_size, chunk):
-    _, cam, _, tx, ty, b, ptab = _frame_stream(card, tile_size)
-    kw = dict(tiles_x=tx, tiles_y=ty, tile_size=tile_size, width=cam.width,
-              height=cam.height, chunk=chunk, alpha_min=1 / 255,
-              alpha_max=0.999, early_eps=eps)
+def _check_bwd(card, ptab, b, eps, **kw):
+    """B2 against its plain version on B1's outputs and a seeded random
+    cotangent."""
+    kw = dict(kw, alpha_min=1 / 255, alpha_max=0.999, early_eps=eps)
     fwd = blend.blend_tiles_fwd(ptab, b.inst_gauss, b.tile_bounds, **kw,
                                 with_labels=False)
     gen = torch.Generator(device=card).manual_seed(5)
-    drgb = torch.randn(cam.height, cam.width, 3, generator=gen, device=card)
-    dtrans = torch.randn(cam.height, cam.width, generator=gen, device=card)
+    h, w = kw["height"], kw["width"]
+    drgb = torch.randn(h, w, 3, generator=gen, device=card)
+    dtrans = torch.randn(h, w, generator=gen, device=card)
     args = (ptab, b.inst_gauss, b.tile_bounds, fwd.rgb, fwd.transmittance,
             drgb, dtrans)
     before = blend.blend_tiles_bwd.launches
@@ -314,6 +473,30 @@ def test_blend_bwd_kernel_matches_plain(card, eps, tile_size, chunk):
     assert (err <= 1e-4).all(), err
     assert torch.equal((got == 0).all(1), (ref == 0).all(1))
     assert not got[:, 9:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [0.0, 1e-5])
+@pytest.mark.parametrize("tile_size,chunk", [(32, 64), (16, 128)])
+@pytest.mark.parametrize("width,height", [(800, 608), (100, 70)])
+def test_blend_bwd_kernel_matches_plain(card, eps, tile_size, chunk, width,
+                                        height):
+    scene, _, proj, tx, ty = _card_frame(card, tile_size, width=width,
+                                         height=height)
+    b = tiles.bin_tiles(proj, tiles_x=tx, tiles_y=ty, tile_size=tile_size)
+    _check_bwd(card, api.pack_table(proj, scene.labels), b, eps, tiles_x=tx,
+               tiles_y=ty, tile_size=tile_size, width=width, height=height,
+               chunk=chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [0.0, 1e-5])
+@pytest.mark.parametrize("tile_size,chunk", [(32, 64), (16, 128), (24, 64)])
+def test_blend_bwd_kernel_matches_plain_on_thin_splats(card, eps, tile_size,
+                                                       chunk):
+    tx, ty, b, ptab = _thin_stream(card, tile_size)
+    _check_bwd(card, ptab, b, eps, tiles_x=tx, tiles_y=ty,
+               tile_size=tile_size, width=200, height=136, chunk=chunk)
 
 
 @pytest.mark.gpu
@@ -384,19 +567,10 @@ def test_losses_on_card_match_cpu(card, name):
     assert float((gc - gh).abs().max() / gh.abs().max()) <= 1e-4
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("tile_size,chunk,width,height", [
-    (32, 64, 800, 608), (16, 128, 800, 608), (32, 64, 100, 70),
-    (16, 128, 100, 70)])
-def test_blend_vis_kernel_matches_plain(card, tile_size, chunk, width,
-                                        height):
-    scene, cam, proj, tx, ty = _card_frame(card, tile_size, width=width,
-                                           height=height)
-    b = tiles.bin_tiles(proj, tiles_x=tx, tiles_y=ty, tile_size=tile_size)
-    ptab = api.pack_table(proj, scene.labels)
-    kw = dict(tiles_x=tx, tiles_y=ty, tile_size=tile_size, width=width,
-              height=height, chunk=chunk, alpha_min=1 / 255,
-              alpha_max=0.999, with_labels=True)
+def _check_vis(ptab, b, **kw):
+    """B5 against its plain version; returns the rows and the tight
+    instance count."""
+    kw = dict(kw, alpha_min=1 / 255, alpha_max=0.999, with_labels=True)
     before = blend.blend_tiles_vis.launches
     out, inst_w = blend.blend_tiles_vis(ptab, b.inst_gauss, b.tile_bounds,
                                         **kw)
@@ -404,7 +578,8 @@ def test_blend_vis_kernel_matches_plain(card, tile_size, chunk, width,
                                               b.tile_bounds, **kw)
     torch.cuda.synchronize()
     assert blend.blend_tiles_vis.launches == before + 1
-    # B1's operations in B1's order, and max is exact: 1e-5 is headroom
+    # B1's operations in B1's order on every pair the skip test keeps, and
+    # max is exact: 1e-5 is headroom
     for k in ("rgb", "transmittance", "best_weight"):
         err = (getattr(out, k) - getattr(ref, k)).abs().max().item()
         assert err <= 1e-5, k
@@ -412,7 +587,30 @@ def test_blend_vis_kernel_matches_plain(card, tile_size, chunk, width,
     assert (inst_w - ref_w).abs().max().item() <= 1e-5
     tight = int(b.num_instances)
     assert tight < inst_w.numel() and not inst_w[tight:].any()
+    return inst_w, tight
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_size,chunk,width,height", [
+    (32, 64, 800, 608), (16, 128, 800, 608), (32, 64, 100, 70),
+    (16, 128, 100, 70), (24, 64, 100, 70)])
+def test_blend_vis_kernel_matches_plain(card, tile_size, chunk, width,
+                                        height):
+    scene, cam, proj, tx, ty = _card_frame(card, tile_size, width=width,
+                                           height=height)
+    b = tiles.bin_tiles(proj, tiles_x=tx, tiles_y=ty, tile_size=tile_size)
+    inst_w, tight = _check_vis(api.pack_table(proj, scene.labels), b,
+                               tiles_x=tx, tiles_y=ty, tile_size=tile_size,
+                               width=width, height=height, chunk=chunk)
     assert (inst_w[:tight] > 0.05).float().mean() > 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_size", [32, 16, 24])
+def test_blend_vis_kernel_matches_plain_on_thin_splats(card, tile_size):
+    tx, ty, b, ptab = _thin_stream(card, tile_size)
+    _check_vis(ptab, b, tiles_x=tx, tiles_y=ty, tile_size=tile_size,
+               width=200, height=136, chunk=64)
 
 
 def _vote_inputs(device):
