@@ -31,17 +31,20 @@ P. the probes: ``python -m gsplat_tpu_torch.utils.roofline``'s path (the
    CPU's (within 1e-3 of each tensor's peak); B5 against its plain version
    (image, T and best weight within 1e-5, labels equal, per-instance rows
    within 1e-5 and zero past the last tile), and both label votes on the
-   card against the CPU on two small scenes; then B5 and B2 against their
-   plain versions (the same bars) on the thin-splat frame
+   card against the CPU on two small scenes; B1 at early_stop_eps 0 equal
+   to B5 bit for bit (image, T, best weight, label); then B1, B5 and B2
+   against their plain versions (the same bars) on the thin-splat frame
    (``synthetic.thin_splats_projection``: 3,000 thin, rotated, high-opacity
    splats on the 16-px grid lines, 200x136), the skip test's hardest input;
-   B5's and B2's registers and resident blocks an SM are logged after the
-   build, each frame's tile lengths (max, p99, median) beside its checks;
+   B1's, B5's and B2's registers and resident blocks an SM are logged after
+   the build, each frame's tile lengths (max, p99, median) beside its
+   checks;
 3. the serving path at real size: a 2M-gaussian scene written to PLY, loaded
    back through ``scene_from_ply`` and rendered with labels from 8 orbit
    views at 800x608 through ``render``; outputs finite and covered, nothing
    dropped, B4 and B1 launched once per frame; then B4, B1, B2 and B5
-   against their plain versions on one of those frames, and B3 against a
+   against their plain versions on one of those frames, B1 at eps 0 equal
+   to B5 bit for bit there, and B3 against a
    float64 prefix sum on that frame's gradient fold (within 1e-6 of each
    column's peak prefix);
 R. the offline render path at real size: ``gsplat_tpu_torch.cli.render``
@@ -67,8 +70,10 @@ L. the labeling path at real size, through ``gsplat_tpu_torch.cli.label``:
    single-view ``make_train_step`` step timed and split into its stages;
 5. times on the card (CUDA events, median of 10 after warm-up) of
    projection, B4, the sort, B1, B2, B3, B5, ``torch.cumsum`` and the whole
-   render at both frames, the plain versions' times, bounds (at the P1
-   rates and at the data sheet's), and peak device memory.
+   render at both frames, B4 and B1 also replayed from a CUDA graph (the
+   kernel without its wrapper's host work), the plain versions' times,
+   bounds (at the P1 rates and at the data sheet's), and peak device
+   memory.
 
 The second-to-last line of stdout is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``.
@@ -113,6 +118,7 @@ from gsplat_tpu_torch.render.projection import (CameraParams, project,
                                                 tile_grid)
 from gsplat_tpu_torch.scene import color_to_dc, dc_color, scene_from_numpy
 from gsplat_tpu_torch.utils import roofline, scan_probe
+from gsplat_tpu_torch.utils.profiling import graph_ms
 from gsplat_tpu_torch.utils.roofline import B4_OPS_PER_SLOT, HBM_BYTES_PER_S
 
 REPO = Path(__file__).resolve().parent
@@ -413,6 +419,20 @@ def check_b1(frame: Frame, tag: str) -> float:
                                  f"{labels_equal}")
         worst = max(worst, *errs.values())
     return worst
+
+
+def check_b1_equals_b5(frame: Frame, tag: str) -> None:
+    """B5 is B1 with no early stop, the same operations in the same order:
+    at early_stop_eps 0 the two agree bit for bit."""
+    out = frame.blend(0.0)
+    vis, _ = frame.blend_vis()
+    torch.cuda.synchronize()
+    equal = {k: bool(torch.equal(getattr(out, k), getattr(vis, k)))
+             for k in ("rgb", "transmittance", "best_weight", "label")}
+    log({"check": "B1 at eps 0 equals B5 bit for bit", "frame": tag,
+         "equal": equal})
+    if not all(equal.values()):
+        raise AssertionError(f"B1 at eps 0 differs from B5: {equal}")
 
 
 def check_b5(frame: Frame, tag: str) -> float:
@@ -1040,7 +1060,7 @@ def probe_phase(device, card) -> dict:
                     * iters, 0)
         else:
             exps = threads * roofline.CHAINS * roofline.EXP_STEPS * iters
-            work = (nbytes, 2 * exps, exps)
+            work = (nbytes, roofline.EXP_STEP_OPS * exps, exps)
         # a probe's bound is the data sheet's: at the measured rates it
         # would be the probe's own time
         b = roofline.bound(*work, sheet)
@@ -1315,7 +1335,7 @@ def main(argv=None) -> int:
             if "ptxas info" in line or "spill" in line:
                 log(f"[{name}] {line.strip()}")
     log({"occupancy": {name: _kernels.occupancy(name)
-                       for name in ("blend_vis", "blend_bwd")},
+                       for name in ("blend_fwd", "blend_vis", "blend_bwd")},
          "sms": torch.cuda.get_device_properties(0).multi_processor_count})
 
     # P. the probes: the card's rates (P1) and the scans (P2)
@@ -1342,9 +1362,11 @@ def main(argv=None) -> int:
     check_small_render(device)
     check_gradients(device)
     err_b5 = check_b5(bench, "bench")
+    check_b1_equals_b5(bench, "bench")
     check_small_labeling(device)
     thin = Frame.from_projection(*thin_splats_projection(
         3000, width=200, height=136, seed=7, device=device), 200, 136)
+    err_b1 = max(err_b1, check_b1(thin, "thin splats"))
     err_b5 = max(err_b5, check_b5(thin, "thin splats"))
     err_b2 = max(err_b2, check_b2(thin, "thin splats"))
     del thin
@@ -1406,6 +1428,7 @@ def main(argv=None) -> int:
     err_b2 = max(err_b2, check_b2(big, "2M view 0"))
     err_b3 = check_b3(big, "2M view 0")
     err_b5 = max(err_b5, check_b5(big, "2M view 0"))
+    check_b1_equals_b5(big, "2M view 0")
     log({"main_frame_counts": big.instance_counts()})
 
     # L. labeling path: the label CLI over 311 views of the 2M scene
@@ -1443,6 +1466,14 @@ def main(argv=None) -> int:
             ms, runs = cuda_ms(fn)
             row[stage] = ms
             log({"measure": stage, "frame": tag, "ms": ms, "runs_ms": runs,
+                 "card": card})
+        # the kernels alone, replayed from a CUDA graph: at the bench frame
+        # B4 is shorter than its wrapper's host work (checks, allocations,
+        # the launch), which CUDA events around one call time instead
+        for stage, fn in (("B4 enum_keys graph", fr.enum_keys),
+                          ("B1 blend_tiles_fwd graph", fr.blend)):
+            row[stage] = graph_ms(fn)
+            log({"measure": stage, "frame": tag, "ms": row[stage],
                  "card": card})
         # the plain B5 at 2M evaluates all 2.5 G pairs: 2 runs, no warm-up
         # (check_b5 ran it)
@@ -1505,13 +1536,16 @@ def main(argv=None) -> int:
          "source": "gsplat_tpu_torch/csrc/enum_keys.cu",
          "replaces": "gsplat_tpu/render/tiles.py:119",
          "launches": launches["enum_keys"], "max_abs_err": err_b4,
-         "ms": row["B4 enum_keys"], "plain_ms": row["B4 plain"],
+         "ms": row["B4 enum_keys"], "graph_ms": row["B4 enum_keys graph"],
+         "plain_ms": row["B4 plain"],
          "bound_ms": b4[0], "bound_by": b4[1], "library_ms": None},
         {"name": "blend_tiles_fwd", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/blend_fwd.cu",
          "replaces": "gsplat_tpu/render/blend_pallas.py:210",
          "launches": launches["blend_tiles_fwd"], "max_abs_err": err_b1,
-         "ms": row["B1 blend_tiles_fwd"], "plain_ms": row["B1 plain"],
+         "ms": row["B1 blend_tiles_fwd"],
+         "graph_ms": row["B1 blend_tiles_fwd graph"],
+         "plain_ms": row["B1 plain"],
          **blend_row("B1"), "library_ms": None},
         {"name": "blend_tiles_bwd", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/blend_bwd.cu",

@@ -136,7 +136,7 @@ def function(name: str):
 def occupancy(name: str) -> dict:
     """Registers, local (spill) bytes, static shared memory and resident
     blocks an SM of the kernel of ``csrc/<name>.cu``, from its
-    ``gsplat_<name>_occupancy`` entry point (B5 and B2 have one)."""
+    ``gsplat_<name>_occupancy`` entry point (B1, B5 and B2 have one)."""
     function(name)
     fn = getattr(ctypes.CDLL(str(library_path(name))),
                  f"gsplat_{name}_occupancy")

@@ -5,17 +5,30 @@
 // through _enum_keys), which computes the key per slot from a gathered
 // [B, 16] row table.
 //
-// Design: the "duplicate with keys" step of CUDA 3DGS. One thread per
-// gaussian walks its candidate-tile bbox row-major (local = row * bw + col,
-// the order of the JAX decode) and writes, at offsets[g] + local, the key
-// (tile << db | qd) for a kept pair, or the sentinel (num_tiles << db | qd),
-// together with the gaussian index. Bbox, offsets and depth keys come from the
-// wrapper (render/tiles.py::enum_keys); the stable sort runs outside.
+// Design: slot-parallel and block-cooperative. Gaussian g owns the slots
+// [offsets[g], offsets[g] + cnt[g]) (offsets is the exclusive prefix sum of
+// cnt), so 256 consecutive gaussians own one consecutive slot range. Each
+// block of 256 threads takes 256 consecutive gaussians:
+//   1. loads their offsets into shared memory, and the fields of those with
+//      a slot (bbox, mean, conic, cutoff, depth key), coalesced;
+//   2. strides its threads over the block's slot range; each thread finds
+//      its slot's gaussian by an 8-step binary search of the offsets in
+//      shared memory (the last gaussian whose offset is <= the slot: the
+//      gaussians with no slot before it share its offset), decodes the
+//      local slot row-major in the bbox (local = row * bw + col, the order
+//      of the JAX decode and of the plain version), and writes the key
+//      (tile << db | qd) for a kept pair or the sentinel
+//      (num_tiles << db | qd), and the gaussian index.
+// Neighbouring threads write neighbouring slots, and a large splat costs its
+// block a few strided rounds instead of one thread a serial walk that holds
+// its whole warp (the one-thread-per-gaussian design this replaces). Bbox,
+// offsets and depth keys come from the wrapper (render/tiles.py::enum_keys);
+// the stable sort runs outside.
 //
 // Bound on the card: bytes. Each gaussian's 12 inputs (48 B) are read once
-// and each slot writes 8 B; the ~40 flops of the rectangle test per slot are
-// far below the f32 rate. At render sizes the kernel is a few microseconds of
-// traffic, so it is bound by its launch; the design spends nothing on that.
+// and each slot writes 8 B; the ~54 f32 instructions of the rectangle test
+// per slot are far below the f32 rate. At render sizes the kernel is tens of
+// microseconds of traffic, so the design keeps every access coalesced.
 //
 // Exactness: the keep-set must equal the plain version (torch elementwise
 // ops, one rounding per operation) bit for bit. So this file is compiled with
@@ -25,6 +38,8 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kThreads = 256;   // gaussians and threads a block
 
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
@@ -58,7 +73,15 @@ __device__ __forceinline__ float rect_min_q(float mx, float my, float ca,
   return fminf(fminf(qxa, qxb), fminf(qya, qyb));
 }
 
-__global__ void enum_keys_kernel(
+// the block's gaussians: offsets of all, fields of those with a slot
+struct Block {
+  int off[kThreads], x0[kThreads], y0[kThreads], bw[kThreads], qd[kThreads];
+  float u[kThreads], v[kThreads], ca[kThreads], cb[kThreads], cc[kThreads],
+      qm[kThreads];
+  int end;   // one past the block's last slot
+};
+
+__global__ void __launch_bounds__(kThreads) enum_keys_kernel(
     const float* __restrict__ u, const float* __restrict__ v,
     const float* __restrict__ ca, const float* __restrict__ cb,
     const float* __restrict__ cc, const float* __restrict__ qmax,
@@ -67,28 +90,50 @@ __global__ void enum_keys_kernel(
     const int* __restrict__ offsets, const int* __restrict__ qd, int n,
     int tiles_x, int num_tiles, float ts, int db, int* __restrict__ keys,
     int* __restrict__ gauss) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  const int c = cnt[g];
-  if (c == 0) return;
-  const int w = bw[g];
-  const int h = c / w;
-  const float mx = u[g], my = v[g];
-  const float a = ca[g], b = cb[g], cq = cc[g], qm = qmax[g];
-  const int q = qd[g];
-  const int tx0 = bx0[g], ty0 = by0[g];
-  int slot = offsets[g];
-  for (int r = 0; r < h; ++r) {
-    const int trow = ty0 + r;
-    const float ry0 = static_cast<float>(trow) * ts;
-    for (int col = 0; col < w; ++col, ++slot) {
-      const int tcol = tx0 + col;
-      const float mq = rect_min_q(mx, my, a, b, cq,
-                                  static_cast<float>(tcol) * ts, ry0, ts);
-      const int tile = (mq <= qm) ? trow * tiles_x + tcol : num_tiles;
-      keys[slot] = (tile << db) | q;
-      gauss[slot] = g;
+  __shared__ Block s;
+  const int g0 = blockIdx.x * kThreads;
+  const int nb = min(kThreads, n - g0);
+  const int t = threadIdx.x;
+  // 1. the block's gaussians
+  if (t < nb) {
+    const int g = g0 + t;
+    const int c = cnt[g];
+    s.off[t] = offsets[g];
+    if (c > 0) {
+      s.x0[t] = bx0[g];
+      s.y0[t] = by0[g];
+      s.bw[t] = bw[g];
+      s.qd[t] = qd[g];
+      s.u[t] = u[g];
+      s.v[t] = v[g];
+      s.ca[t] = ca[g];
+      s.cb[t] = cb[g];
+      s.cc[t] = cc[g];
+      s.qm[t] = qmax[g];
     }
+    if (t == nb - 1) s.end = s.off[t] + c;
+  }
+  __syncthreads();
+  // 2. the block's slots, neighbouring threads on neighbouring slots
+  const int end = s.end;
+  for (int slot = s.off[0] + t; slot < end; slot += kThreads) {
+    // the last gaussian j < nb whose offset is <= slot
+    int j = 0;
+#pragma unroll
+    for (int step = kThreads / 2; step > 0; step >>= 1) {
+      if (j + step < nb && s.off[j + step] <= slot) j += step;
+    }
+    const int local = slot - s.off[j];
+    const int w = s.bw[j];
+    const int r = local / w;
+    const int trow = s.y0[j] + r;
+    const int tcol = s.x0[j] + (local - r * w);
+    const float mq = rect_min_q(s.u[j], s.v[j], s.ca[j], s.cb[j], s.cc[j],
+                                static_cast<float>(tcol) * ts,
+                                static_cast<float>(trow) * ts, ts);
+    const int tile = (mq <= s.qm[j]) ? trow * tiles_x + tcol : num_tiles;
+    keys[slot] = (tile << db) | s.qd[j];
+    gauss[slot] = g0 + j;
   }
 }
 
@@ -101,8 +146,7 @@ extern "C" int gsplat_enum_keys(
     int n, int tiles_x, int num_tiles, float ts, int db, void* keys,
     void* gauss, void* stream) {
   if (n > 0) {
-    const int threads = 256;
-    enum_keys_kernel<<<(n + threads - 1) / threads, threads, 0,
+    enum_keys_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(u), static_cast<const float*>(v),
         static_cast<const float*>(ca), static_cast<const float*>(cb),

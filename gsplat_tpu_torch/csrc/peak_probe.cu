@@ -14,7 +14,7 @@
 // - The FMA chain calls __fmaf_rn: every source is built with -fmad=false,
 //   under which c * a + b compiles to FMUL + FADD, two instructions.
 // - The exp chain calls IEEE expf under the same flags as the blend kernels
-//   (blend_tile.cuh, blend_bwd.cu), so its rate is the rate of the expf
+//   (blend_fwd.cu, blend_vis.cu, blend_bwd.cu), so its rate is the rate of the expf
 //   those kernels issue: a range reduction, one MUFU.EX2 and fix-ups, not
 //   one special-function operation. Each step also takes |c| (an operand
 //   modifier) and one FMUL, which the rate's reckoning charges at the FMA

@@ -20,8 +20,8 @@ back with the suffix-sum trick of ``_bwd_win_kernel``: with the per-pixel
 seed D = C.dC + T_final.dT and the inclusive prefix p of w (c.dC), the
 suffix is S = D - p and dalpha = T (c.dC) - S / (1 - alpha).
 
-B5 and B2 pass over the instance-pixel pairs that certainly fail the alpha
-cut (``csrc/blend_cull.cuh``); :func:`_cull_q_cut` and
+B1, B5 and B2 pass over the instance-pixel pairs that certainly fail the
+alpha cut (``csrc/blend_cull.cuh``); :func:`_cull_q_cut` and
 :func:`_cull_rect_skip` mirror that test in plain PyTorch for the tests.
 """
 
@@ -42,9 +42,8 @@ PARAM_ROWS = 16
 
 # the kernel keeps at most 4 pixels per thread in registers, 256 threads
 MAX_TILE_PIXELS = 1024
-# B1's shared memory per block is 10 columns x chunk x 4 bytes; stay under
-# the 48 KB a block gets without opting in (B2 stages 64 instances at a time
-# whatever the chunk)
+# the early-stop batch sizes the blend wrappers take (B1 and B2 stage 64
+# instances at a time whatever the chunk)
 MAX_CHUNK = 1024
 
 # Margins of the skip test of B5 and B2 (csrc/blend_cull.cuh, where the
@@ -228,11 +227,15 @@ def blend_tiles_fwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
     stream, reading parameters from the [N, 16] table ``ptab``.
 
     Replaces ``gsplat_tpu/render/blend_pallas.py::_fwd_win_kernel``. On the
-    card it launches ``csrc/blend_fwd.cu`` (one 256-thread block per tile,
-    batches of ``chunk`` instances staged in shared memory; it spends an exp
-    and f32 operations on every instance-pixel pair of a batch that runs,
-    where only the pairs past the alpha cut need the exp); CPU tensors take
-    the plain version."""
+    card it launches ``csrc/blend_fwd.cu``: one 256-thread block per tile
+    (the early stop needs the whole tile's T), walking the tile's range in
+    batches of ``chunk`` instances, each staged in sub-batches of 64; a warp
+    passes over an instance that misses its 32x4 strip, and a pixel tests q
+    before the exp (``csrc/blend_cull.cuh``: conservative with a stated
+    margin, so T, RGB, the best weight and the label are those of the
+    unculled walk, which B2 replays bit for bit). What still bounds it on
+    the card: one block a tile, so the busiest tile sets the time. CPU
+    tensors take the plain version."""
     _check_stream("blend_tiles_fwd", ptab, inst_gauss, tile_bounds,
                   tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
                   width=width, height=height, chunk=chunk)

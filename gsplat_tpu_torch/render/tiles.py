@@ -160,9 +160,11 @@ def enum_keys(proj: Projected, qd: torch.Tensor, bb: BBoxes, *,
     row-major) order.
 
     Replaces ``gsplat_tpu/render/tiles.py::_enum_key_kernel``. On the card it
-    launches ``csrc/enum_keys.cu`` (one thread per gaussian; bound by bytes,
-    and at render sizes by its launch); CPU tensors take the plain version.
-    The keep-set equals the plain version's bit for bit."""
+    launches ``csrc/enum_keys.cu`` (a block per 256 consecutive gaussians,
+    its threads strided over their slots, each finding its slot's gaussian
+    by a binary search of the offsets; coalesced stores, bound by bytes);
+    CPU tensors take the plain version. The keep-set equals the plain
+    version's bit for bit."""
     fields = (proj.u, proj.v, proj.ca, proj.cb, proj.cc, proj.qmax)
     ints = (bb.x0, bb.y0, bb.bw, bb.cnt, bb.offsets, qd)
     n = proj.u.shape[0]

@@ -1,4 +1,5 @@
-"""Where the time of the blend kernels B5 and B2 goes on the card.
+"""Where the time of the blend kernels B1, B5 and B2 and of the key
+enumeration B4 goes on the card.
 
     python -m gsplat_tpu_torch.utils.blend_probe [--out PATH]
 
@@ -12,13 +13,17 @@ measurement and writes them all to ``--out`` (default
   on the card with its plain mirror (``render.blend._cull_rect_skip``):
   instances a 16x16 sub-tile keeps (B5's blocks), and (instance, warp
   strip) pairs for B5's 16x2 strips and B2's 32x4 ones;
-- ``blocks``: per block of B5 and B2, the global timer at entry and exit,
-  from builds of ``csrc/blend_vis.cu`` and ``csrc/blend_bwd.cu`` with those
-  two reads added: durations, the blocks that start after the first wave,
-  and the span;
-- ``variants``: B2 built with the row-major lane map and without its
-  register cap, each held against the committed build and timed in turns
-  with it (CUDA events, median of 10).
+- ``blocks``: per block of B1, B5 and B2, the global timer at entry and
+  exit, from builds of ``csrc/blend_fwd.cu``, ``csrc/blend_vis.cu`` and
+  ``csrc/blend_bwd.cu`` with those two reads added: durations, the blocks
+  that start after the first wave, and the span;
+- ``variants``: B1 and B2 built with the row-major lane map and without
+  their register cap, each held against the committed build (B1 bit for
+  bit) and timed in turns with it (CUDA events, median of 10);
+- ``enum_variants``: B4 at this frame and at the bench frame (``bench.py``'s
+  100k scene) against builds of ``csrc/enum_keys.cu`` that walk each
+  gaussian's bbox in one thread (the design B4 had before its slot-parallel
+  one) and that store nothing, timed in turns with the committed build.
 
 Needs the card and ``nvcc``; the builds go to ``build/blend_probe/``.
 """
@@ -38,13 +43,16 @@ import torch
 
 from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.config import DEFAULT
-from gsplat_tpu_torch.io.cameras import orbit_cameras
+from gsplat_tpu_torch.io.cameras import look_at_camera, orbit_cameras
 from gsplat_tpu_torch.io.synthetic import random_scene
 from gsplat_tpu_torch.render import blend
 from gsplat_tpu_torch.render.api import pack_table
 from gsplat_tpu_torch.render.projection import (CameraParams, project,
                                                 tile_grid)
-from gsplat_tpu_torch.render.tiles import bin_tiles
+from gsplat_tpu_torch.render.tiles import (bin_tiles, depth_qkeys,
+                                           depth_shift, enum_keys,
+                                           tile_bboxes)
+from gsplat_tpu_torch.utils.profiling import graph_ms
 
 BUILD = _kernels.BUILD_DIR.parent / "blend_probe"
 DEFAULT_OUT = _kernels.BUILD_DIR.parent / "blend_probe.json"
@@ -78,10 +86,37 @@ PROBE_EXIT = ("  if (threadIdx.x == 0) {\n"
               "    g_probe[3 * blockIdx.x + 2] = probe_sm();\n"
               "  }\n")
 LANE = "  const int lane = threadIdx.x & 31;\n"
-EXITS = {"blend_vis": "  if (!on) return;",
+EXITS = {"blend_fwd": "  // the stores",
+         "blend_vis": "  if (!on) return;",
          "blend_bwd": "  // rows of the batches early stop skipped"}
-B2_PATCHES = "  const bool patches = tile_size % 8 == 0;"
-B2_CAP = "__launch_bounds__(kThreads, 4)"
+# build variants of B1 and B2: (tag, text in the source, replacement)
+BLEND_VARIANTS = (
+    ("row-major lane map", "  const bool patches = tile_size % 8 == 0;",
+     "  const bool patches = false;"),
+    ("no register cap", "__launch_bounds__(kThreads, 4)",
+     "__launch_bounds__(kThreads)"))
+# build variants of B4: its slot loop as one thread per gaussian walking the
+# bbox serially, and its stores behind a test that never holds
+B4_LOOP = """  for (int slot = s.off[0] + t; slot < end; slot += kThreads) {
+    // the last gaussian j < nb whose offset is <= slot
+    int j = 0;
+#pragma unroll
+    for (int step = kThreads / 2; step > 0; step >>= 1) {
+      if (j + step < nb && s.off[j + step] <= slot) j += step;
+    }
+"""
+B4_SERIAL = """  const int j = t;
+  const int jend = t < nb ? (t + 1 < nb ? s.off[t + 1] : end) : 0;
+  for (int slot = t < nb ? s.off[t] : 0; slot < jend; ++slot) {
+"""
+B4_STORES = """    keys[slot] = (tile << db) | s.qd[j];
+    gauss[slot] = g0 + j;
+"""
+B4_NO_STORES = """    if (tile < 0) {
+      keys[slot] = (tile << db) | s.qd[j];
+      gauss[slot] = g0 + j;
+    }
+"""
 
 
 def _edit(text: str, old: str, new: str) -> str:
@@ -179,6 +214,12 @@ class _Frame:
                                      device=device))
         self.eps = rc.early_stop_eps
 
+    def fwd(self, with_labels=True):
+        return blend.blend_tiles_fwd(self.ptab, self.binning.inst_gauss,
+                                     self.binning.tile_bounds, **self.kw,
+                                     early_eps=self.eps,
+                                     with_labels=with_labels)
+
     def vis(self):
         return blend.blend_tiles_vis(self.ptab, self.binning.inst_gauss,
                                      self.binning.tile_bounds, **self.kw,
@@ -246,33 +287,97 @@ def block_times(fr: _Frame, name: str, call, blocks: int) -> dict:
             "sms": len(set(t[:, 2].long().tolist()))}
 
 
-def b2_variants(fr: _Frame) -> list:
-    """B2's lane map and register cap, each against the committed build."""
-    base = fr.bwd()
-    committed = _ms(fr.bwd)
-    text = (_kernels.CSRC / "blend_bwd.cu").read_text()
+def _in_turns(variant_fn, call, timer=_ms) -> dict:
+    """Times (ms, by ``timer``) of ``call`` through ``variant_fn`` and
+    through the committed build, in turns: variant, committed, committed,
+    variant, variant, committed."""
+    times = {"variant": [], "committed": []}
+    for side in ("variant", "committed", "committed", "variant", "variant",
+                 "committed"):
+        if side == "variant":
+            with _Swap(*variant_fn):
+                times[side].append(timer(call))
+        else:
+            times[side].append(timer(call))
+    return times
+
+
+def blend_variants(fr: _Frame, name: str) -> list:
+    """B1's or B2's lane map and register cap, each against the committed
+    build: B1 bit for bit, B2 within each column's peak."""
+    call = fr.fwd if name == "blend_fwd" else fr.bwd
+    base = call()
+    committed = _ms(call)
+    text = (_kernels.CSRC / f"{name}.cu").read_text()
     rows = []
-    for tag, old, new in (
-            ("row-major lane map", B2_PATCHES,
-             "  const bool patches = false;"),
-            ("no register cap", B2_CAP, "__launch_bounds__(kThreads)")):
-        _, fn, info = _load(tag.replace(" ", "_"), "blend_bwd",
+    for tag, old, new in BLEND_VARIANTS:
+        _, fn, info = _load(f"{name}_{tag.replace(' ', '_')}", name,
                             _edit(text, old, new))
-        with _Swap("blend_bwd", fn):
-            got = fr.bwd()
-        peak = base[:, :9].abs().amax(0).clamp_min(1e-30)
-        err = float(((got[:, :9] - base[:, :9]).abs().amax(0) / peak).max())
-        times = {"variant": [], "committed": []}
-        for side in ("variant", "committed", "committed", "variant",
-                     "variant", "committed"):
-            if side == "variant":
-                with _Swap("blend_bwd", fn):
-                    times[side].append(_ms(fr.bwd))
-            else:
-                times[side].append(_ms(fr.bwd))
-        rows.append({"variant": tag, "build": info,
-                     "max_err_over_column_peak": err, "ms": times,
+        with _Swap(name, fn):
+            got = call()
+        if name == "blend_fwd":
+            agree = {"bit_equal": all(torch.equal(a, b)
+                                      for a, b in zip(got, base))}
+        else:
+            peak = base[:, :9].abs().amax(0).clamp_min(1e-30)
+            agree = {"max_err_over_column_peak": float(
+                ((got[:, :9] - base[:, :9]).abs().amax(0) / peak).max())}
+        rows.append({"kernel": name, "variant": tag, "build": info, **agree,
+                     "ms": _in_turns((name, fn), call),
                      "committed_ms_before": committed})
+    return rows
+
+
+def enum_variants(device, fr: _Frame) -> list:
+    """B4 against its one-thread-per-gaussian and store-free builds, at
+    this frame and the bench frame: keys of the serial build equal the
+    committed build's; times in turns, of the wrapper's call (CUDA events
+    around it, ``ms``) and of the kernel alone (``graph_ms``: replayed from
+    a CUDA graph, without the wrapper's host work)."""
+    cfg = DEFAULT
+    bench = random_scene(100_000, seed=0, extent=1.5,
+                         scale_range=(0.004, 0.02), num_labels=16,
+                         device=device)
+    cam = look_at_camera((0, 0, -3.0), (0, 0, 0), width=WIDTH,
+                         height=HEIGHT)
+    bench_proj = project(bench, CameraParams.from_camera(cam, device), WIDTH,
+                         HEIGHT, cfg.raster, z_near=cfg.camera.z_near,
+                         z_far=cfg.camera.z_far)
+    text = (_kernels.CSRC / "enum_keys.cu").read_text()
+    builds = {}
+    for tag, edits in (
+            ("one thread per gaussian", ((B4_LOOP, B4_SERIAL),)),
+            ("no stores", ((B4_STORES, B4_NO_STORES),)),
+            ("one thread per gaussian, no stores",
+             ((B4_LOOP, B4_SERIAL), (B4_STORES, B4_NO_STORES)))):
+        src = text
+        for old, new in edits:
+            src = _edit(src, old, new)
+        builds[tag] = _load(f"enum_keys_{len(builds)}", "enum_keys", src)
+    rows = []
+    for frame, proj in (("2M view 0", fr.proj), ("bench", bench_proj)):
+        nt = fr.tx * fr.ty
+        qd = depth_qkeys(proj.depth, proj.valid, nt)
+        bb = tile_bboxes(proj, tiles_x=fr.tx, tiles_y=fr.ty,
+                         tile_size=cfg.raster.tile_size)
+
+        def call():
+            return enum_keys(proj, qd, bb, tiles_x=fr.tx, num_tiles=nt,
+                             tile_size=cfg.raster.tile_size,
+                             db=32 - depth_shift(nt))
+
+        base = call()
+        for tag, (_, fn, info) in builds.items():
+            row = {"frame": frame, "variant": tag, "build": info,
+                   "slots": bb.total, "gaussians": proj.u.numel()}
+            if "no stores" not in tag:
+                with _Swap("enum_keys", fn):
+                    got = call()
+                row["keys_equal"] = all(torch.equal(a, b)
+                                        for a, b in zip(got, base))
+            row["ms"] = _in_turns(("enum_keys", fn), call)
+            row["graph_ms"] = _in_turns(("enum_keys", fn), call, graph_ms)
+            rows.append(row)
     return rows
 
 
@@ -289,14 +394,17 @@ def main(argv=None) -> int:
     b = fr.binning.tile_bounds
     report = {"device": torch.cuda.get_device_name(0),
               "occupancy": {n: _kernels.occupancy(n)
-                            for n in ("blend_vis", "blend_bwd")},
+                            for n in ("blend_fwd", "blend_vis", "blend_bwd")},
               "tiles": _summary(b[1:] - b[:-1]),
               "skip": skip_counts(fr)}
     nsub = math.ceil(fr.kw["tile_size"] / 16) ** 2
     report["blocks"] = [
+        block_times(fr, "blend_fwd", fr.fwd, fr.tx * fr.ty),
         block_times(fr, "blend_vis", fr.vis, fr.tx * fr.ty * nsub),
         block_times(fr, "blend_bwd", fr.bwd, fr.tx * fr.ty)]
-    report["variants"] = b2_variants(fr)
+    report["variants"] = (blend_variants(fr, "blend_fwd")
+                          + blend_variants(fr, "blend_bwd"))
+    report["enum_variants"] = enum_variants(device, fr)
     for key, value in report.items():
         print(json.dumps({key: value}), flush=True)
     out = Path(args.out)

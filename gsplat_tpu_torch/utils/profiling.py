@@ -7,6 +7,9 @@ Counterpart of ``gsplat_tpu.utils.profiling``:
   reads ``time.perf_counter``. PyTorch runs eagerly and a CUDA event waits
   for the device, so neither the JAX version's on-device loop nor its
   one-iteration baseline subtraction is needed.
+- ``graph_ms``: the card's milliseconds per call of a short kernel's
+  wrapper with the host's launch cost taken out, by replaying a CUDA graph
+  of many calls.
 - ``Throughput``: turns step times into rate metrics (Mpix/s, gaussians
   blended/s, steps/s).
 - ``trace``: a ``torch.profiler`` trace of the CPU and, where there is a
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import statistics
 import time
 from pathlib import Path
 from typing import Callable, Dict, Optional
@@ -74,6 +78,36 @@ def device_timer(
         c = call(c)
     fetch_sync(c)
     return max((time.perf_counter() - t0) / iters, 1e-9)
+
+
+def graph_ms(fn: Callable, launches: int = 20, reps: int = 10) -> float:
+    """Device milliseconds per call of ``fn`` (on the card): ``launches``
+    calls captured in one CUDA graph, the graph replayed ``reps`` times
+    between CUDA events, the median replay over ``launches``. Events around
+    one call of a kernel shorter than its wrapper's host work (checks,
+    allocations, the launch) time the host; the replay does not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return statistics.median(times)
 
 
 class Throughput:

@@ -114,6 +114,11 @@ TARGET_S = 2e-3
 SAMPLES = 5
 # seconds of FMA chain launches queued while nvidia-smi reads the SM clock
 LOAD_S = 1.5
+# f32 instructions of one expf chain step besides the expf itself, charged at
+# the FMA rate: the SASS of c <- expf(-|c| a) folds the negated |c| into the
+# one FMUL by a as operand modifiers (cuobjdump -sass of csrc/peak_probe.cu),
+# so a step is that FMUL and the expf's own 8 instructions
+EXP_STEP_OPS = 1
 _WHICH = {"fma": 0, "expf": 1}
 
 
@@ -239,14 +244,22 @@ def _sm_clock_under_load(x: torch.Tensor, blocks: int, iters: int,
     return (float(mhz), power.strip()) if loaded else (None, None)
 
 
+def pure_expf_rate(exps: int, t_exp: float, fma_rate: float) -> float:
+    """expf results per second of an expf chain launch that computed
+    ``exps`` results in ``t_exp`` seconds, once each step's EXP_STEP_OPS
+    other f32 instructions are charged at ``fma_rate``."""
+    return exps / max(t_exp - exps * EXP_STEP_OPS / fma_rate, 1e-9)
+
+
 def measure_peaks(device: DeviceLike = None) -> dict:
     """The device's f32 FMA rate and IEEE expf rate from the P1 probes:
     each the counted operations of one launch over its median time.
 
     ``fma_per_s`` counts FMA instructions, ``f32_flops_per_s`` is twice
-    that. ``expf_per_s`` is the expf chain's results per second once each
-    step's two other operations (the |c| and the product) are charged at
-    the FMA rate, scripts/roofline.py's rule. On the card,
+    that. ``expf_per_s`` is :func:`pure_expf_rate`: the expf chain's
+    results per second once each step's one other instruction (the product
+    with the folded -|c|, EXP_STEP_OPS) is charged at the FMA rate. On the
+    card,
     ``f32_issue_per_s`` is 128 lanes x SMs x the SM clock that nvidia-smi
     reads under the FMA chain's load (None where it cannot)."""
     device = resolve_device(device)
@@ -265,7 +278,6 @@ def measure_peaks(device: DeviceLike = None) -> dict:
             issue = F32_LANES_PER_SM * sms * mhz * 1e6
     exp_iters, t_exp = _time_launch(expf_chains, x, blocks)
     exps = threads * CHAINS * EXP_STEPS * exp_iters
-    t_exp_pure = max(t_exp - exps * 2 / fma_rate, 1e-9)
     return dict(
         device=(torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu (plain versions; not a device rate)"),
@@ -273,7 +285,7 @@ def measure_peaks(device: DeviceLike = None) -> dict:
         fma_iters=fma_iters, fma_launch_s=t_fma,
         expf_iters=exp_iters, expf_launch_s=t_exp,
         fma_per_s=fma_rate, f32_flops_per_s=2.0 * fma_rate,
-        expf_per_s=exps / t_exp_pure,
+        expf_per_s=pure_expf_rate(exps, t_exp, fma_rate),
         sm_mhz_under_load=mhz, power_w_under_load=power,
         f32_issue_per_s=issue)
 

@@ -397,16 +397,89 @@ def test_enum_keys_kernel_matches_plain(card, tile_size):
     assert torch.equal(keys, pkeys) and torch.equal(gauss, pgauss)
 
 
+def _enum_projection(device, n, seed, *, big, valid_from=None):
+    """[n] gaussians of no scene on an 800x608 frame (a tenth of them
+    invalid, and all of ``valid_from``'s range when given), means up to 50
+    px off the image, sigmas 0.5-6 px, but a share ``big`` of them 40-120 px:
+    at 8-px tiles those bboxes hold hundreds to thousands of slots."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, np.pi, n)
+    s1 = np.where(rng.random(n) < big, rng.uniform(40, 120, n),
+                  rng.uniform(0.5, 6, n))
+    s2 = s1 * rng.uniform(0.2, 1.0, n)
+    c, s = np.cos(ang), np.sin(ang)
+    var_x = c * c * s1 ** 2 + s * s * s2 ** 2 + 0.3
+    var_y = s * s * s1 ** 2 + c * c * s2 ** 2 + 0.3
+    ca, cb, cc = _conic(ang, s1, s2, 0.3)
+    valid = rng.random(n) < 0.9
+    if valid_from is not None:
+        valid[valid_from] = False
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(device)
+    ex, ey = 3.33 * np.sqrt(var_x), 3.33 * np.sqrt(var_y)
+    return projection.Projected(
+        u=f(rng.uniform(-50, 850, n)), v=f(rng.uniform(-50, 658, n)),
+        ca=ca.to(device), cb=cb.to(device), cc=cc.to(device),
+        depth=f(rng.uniform(1, 10, n)), radius=f(np.maximum(ex, ey)),
+        ex=f(ex), ey=f(ey), qmax=f(np.full(n, 3.33 ** 2)),
+        red=f(np.ones(n)), green=f(np.ones(n)), blue=f(np.ones(n)),
+        opacity=f(np.ones(n)), valid=torch.from_numpy(valid).to(device))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("eps", [0.0, 1e-5])
-@pytest.mark.parametrize("tile_size,chunk", [(32, 64), (16, 128)])
-def test_blend_kernel_matches_plain(card, eps, tile_size, chunk):
-    scene, cam, proj, tx, ty = _card_frame(card, tile_size)
-    b = tiles.bin_tiles(proj, tiles_x=tx, tiles_y=ty, tile_size=tile_size)
-    ptab = api.pack_table(proj, scene.labels)
-    kw = dict(tiles_x=tx, tiles_y=ty, tile_size=tile_size, width=cam.width,
-              height=cam.height, chunk=chunk, alpha_min=1 / 255,
-              alpha_max=0.999, early_eps=eps, with_labels=True)
+@pytest.mark.parametrize("case", ["large_bboxes", "empty_blocks", "no_slot"])
+def test_enum_keys_kernel_matches_plain_on_edge_cases(card, case):
+    """Bboxes of more than 256 slots; whole blocks of 256 gaussians with no
+    slot, at N not a multiple of 256; and no slot at all."""
+    n, big, empty = {"large_bboxes": (1000, 0.05, None),
+                     "empty_blocks": (2000, 0.01, slice(256, 1024)),
+                     "no_slot": (1000, 0.0, slice(None))}[case]
+    proj = _enum_projection(card, n, seed=len(case), big=big,
+                            valid_from=empty)
+    tx, ty = projection.tile_grid(800, 608, 8)
+    qd = tiles.depth_qkeys(proj.depth, proj.valid, tx * ty)
+    bb = tiles.tile_bboxes(proj, tiles_x=tx, tiles_y=ty, tile_size=8)
+    kw = dict(tiles_x=tx, num_tiles=tx * ty, tile_size=8,
+              db=32 - tiles.depth_shift(tx * ty))
+    before = tiles.enum_keys.launches
+    keys, gauss = tiles.enum_keys(proj, qd, bb, **kw)
+    pkeys, pgauss = tiles._enum_keys_plain(proj, qd, bb, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, pkeys) and torch.equal(gauss, pgauss)
+    if case == "no_slot":
+        assert bb.total == 0 and tiles.enum_keys.launches == before
+        return
+    assert tiles.enum_keys.launches == before + 1
+    if case == "large_bboxes":
+        assert int(bb.cnt.max()) > 256
+        # and the filter cut some slots of the long, rotated bboxes
+        assert int((keys >> kw["db"] == tx * ty).sum()) > 0
+    else:
+        assert n % 256 and not bb.cnt[empty].any() and bb.total > 0
+
+
+@pytest.mark.gpu
+def test_graph_ms_replays_the_wrapper(card):
+    """profiling.graph_ms captures the wrapper's launches in a CUDA graph
+    and replays them: a positive time, and the outputs of a replay equal
+    the eager call's."""
+    from gsplat_tpu_torch.utils.profiling import graph_ms
+    _, _, proj, tx, ty = _card_frame(card)
+    qd = tiles.depth_qkeys(proj.depth, proj.valid, tx * ty)
+    bb = tiles.tile_bboxes(proj, tiles_x=tx, tiles_y=ty, tile_size=32)
+    kw = dict(tiles_x=tx, num_tiles=tx * ty, tile_size=32,
+              db=32 - tiles.depth_shift(tx * ty))
+    want = tiles.enum_keys(proj, qd, bb, **kw)
+    got = []
+    ms = graph_ms(lambda: got.append(tiles.enum_keys(proj, qd, bb, **kw)),
+                  launches=3, reps=2)
+    torch.cuda.synchronize()
+    assert ms > 0 and len(got) == 4   # the warm-up call and 3 captured
+    for keys, gauss in got:
+        assert torch.equal(keys, want[0]) and torch.equal(gauss, want[1])
+
+
+def _check_fwd(ptab, b, **kw):
+    """B1 against its plain version."""
     before = blend.blend_tiles_fwd.launches
     out = blend.blend_tiles_fwd(ptab, b.inst_gauss, b.tile_bounds, **kw)
     ref = blend._blend_tiles_fwd_plain(ptab, b.inst_gauss, b.tile_bounds,
@@ -414,11 +487,24 @@ def test_blend_kernel_matches_plain(card, eps, tile_size, chunk):
     torch.cuda.synchronize()
     assert blend.blend_tiles_fwd.launches == before + 1
     # the kernel repeats the plain version's operations in the same order
-    # (no FMA contraction, the same expf), so 1e-5 is headroom, not slack
+    # on every pair the skip test keeps (no FMA contraction, the same expf),
+    # so 1e-5 is headroom, not slack
     for k in ("rgb", "transmittance", "best_weight"):
         err = (getattr(out, k) - getattr(ref, k)).abs().max().item()
         assert err <= 1e-5, k
     assert torch.equal(out.label, ref.label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [0.0, 1e-5])
+@pytest.mark.parametrize("tile_size,chunk", [(32, 64), (16, 128)])
+def test_blend_kernel_matches_plain(card, eps, tile_size, chunk):
+    scene, cam, proj, tx, ty = _card_frame(card, tile_size)
+    b = tiles.bin_tiles(proj, tiles_x=tx, tiles_y=ty, tile_size=tile_size)
+    _check_fwd(api.pack_table(proj, scene.labels), b, tiles_x=tx, tiles_y=ty,
+               tile_size=tile_size, width=cam.width, height=cam.height,
+               chunk=chunk, alpha_min=1 / 255, alpha_max=0.999,
+               early_eps=eps, with_labels=True)
 
 
 @pytest.mark.gpu
@@ -497,6 +583,48 @@ def test_blend_bwd_kernel_matches_plain_on_thin_splats(card, eps, tile_size,
     tx, ty, b, ptab = _thin_stream(card, tile_size)
     _check_bwd(card, ptab, b, eps, tiles_x=tx, tiles_y=ty,
                tile_size=tile_size, width=200, height=136, chunk=chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [0.0, 1e-5])
+@pytest.mark.parametrize("tile_size", [32, 16, 24])
+def test_blend_kernel_matches_plain_on_thin_splats(card, eps, tile_size):
+    tx, ty, b, ptab = _thin_stream(card, tile_size)
+    _check_fwd(ptab, b, tiles_x=tx, tiles_y=ty, tile_size=tile_size,
+               width=200, height=136, chunk=64, alpha_min=1 / 255,
+               alpha_max=0.999, early_eps=eps, with_labels=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["random", "thin splats"])
+@pytest.mark.parametrize("tile_size", [32, 16, 24])
+def test_blend_kernel_at_eps_0_equals_vis_kernel(card, frame, tile_size):
+    """B5 is B1 with no early stop, the same operations in the same order:
+    at early_eps 0 the two agree bit for bit, and B1 without labels gives
+    the same image and T."""
+    if frame == "random":
+        scene, cam, proj, tx, ty = _card_frame(card, tile_size)
+        b = tiles.bin_tiles(proj, tiles_x=tx, tiles_y=ty,
+                            tile_size=tile_size)
+        ptab, width, height = (api.pack_table(proj, scene.labels),
+                               cam.width, cam.height)
+    else:
+        tx, ty, b, ptab = _thin_stream(card, tile_size)
+        width, height = 200, 136
+    kw = dict(tiles_x=tx, tiles_y=ty, tile_size=tile_size, width=width,
+              height=height, chunk=64, alpha_min=1 / 255, alpha_max=0.999)
+    fwd = blend.blend_tiles_fwd(ptab, b.inst_gauss, b.tile_bounds, **kw,
+                                early_eps=0.0, with_labels=True)
+    bare = blend.blend_tiles_fwd(ptab, b.inst_gauss, b.tile_bounds, **kw,
+                                 early_eps=0.0, with_labels=False)
+    vis, _ = blend.blend_tiles_vis(ptab, b.inst_gauss, b.tile_bounds, **kw,
+                                   with_labels=True)
+    torch.cuda.synchronize()
+    for k in ("rgb", "transmittance", "best_weight", "label"):
+        assert torch.equal(getattr(fwd, k), getattr(vis, k)), k
+    assert torch.equal(bare.rgb, fwd.rgb)
+    assert torch.equal(bare.transmittance, fwd.transmittance)
+    assert (fwd.label != UNLABELED).any()
 
 
 @pytest.mark.gpu

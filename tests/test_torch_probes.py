@@ -110,6 +110,26 @@ def test_bound_takes_the_larger_time():
     assert sheet.exp_per_s == pytest.approx(16 * 132 * 1.98e9)
 
 
+def test_expf_rate_charges_one_instruction_a_step(monkeypatch):
+    """The exp chain's step is one FMUL (the -|c| folds into it) besides
+    the expf: with fixed launch times the pure rate is exps / (t_exp -
+    exps * 1 / fma_rate)."""
+    assert roofline.EXP_STEP_OPS == 1
+    exps, t_exp, fma_rate = 8e9, 2e-3, 32e12
+    assert roofline.pure_expf_rate(exps, t_exp, fma_rate) == pytest.approx(
+        exps / (t_exp - exps / fma_rate))
+    launch = {roofline.fma_chains: (5, 1e-3), roofline.expf_chains: (3, 2e-3)}
+    monkeypatch.setattr(roofline, "_time_launch",
+                        lambda fn, x, blocks: launch[fn])
+    peaks = roofline.measure_peaks("cpu")
+    threads = roofline.BLOCKS_PER_SM * roofline.THREADS
+    fma_rate = threads * roofline.CHAINS * roofline.FMA_STEPS * 5 / 1e-3
+    exps = threads * roofline.CHAINS * roofline.EXP_STEPS * 3
+    assert peaks["fma_per_s"] == pytest.approx(fma_rate)
+    assert peaks["expf_per_s"] == pytest.approx(
+        exps / (2e-3 - exps / fma_rate))
+
+
 @pytest.mark.parametrize("issue", [None, 30e12, 34e12])
 def test_measured_rates_take_the_larger_f32_peak(issue):
     peaks = dict(fma_per_s=32e12, expf_per_s=4e12, f32_issue_per_s=issue)
