@@ -32,7 +32,9 @@ P. the probes: ``python -m gsplat_tpu_torch.utils.roofline``'s path (the
    (image, T and best weight within 1e-5, labels equal, per-instance rows
    within 1e-5 and zero past the last tile), and both label votes on the
    card against the CPU on two small scenes; B1 at early_stop_eps 0 equal
-   to B5 bit for bit (image, T, best weight, label); then B1, B5 and B2
+   to B5 bit for bit (image, T, best weight, label); the fold's boundary
+   gathers (``render.api.segment_sums``) equal to their plain version bit
+   for bit on the frame's fold; then B1, B5 and B2
    against their plain versions (the same bars) on the thin-splat frame
    (``synthetic.thin_splats_projection``: 3,000 thin, rotated, high-opacity
    splats on the 16-px grid lines, 200x136), the skip test's hardest input;
@@ -44,9 +46,11 @@ P. the probes: ``python -m gsplat_tpu_torch.utils.roofline``'s path (the
    views at 800x608 through ``render``; outputs finite and covered, nothing
    dropped, B4 and B1 launched once per frame; then B4, B1, B2 and B5
    against their plain versions on one of those frames, B1 at eps 0 equal
-   to B5 bit for bit there, and B3 against a
+   to B5 bit for bit there, B3 against a
    float64 prefix sum on that frame's gradient fold (within 1e-6 of each
-   column's peak prefix);
+   column's peak prefix, and equal bit for bit over three calls with a
+   call at the bench frame's size between them), and the boundary gathers
+   equal to their plain version bit for bit;
 R. the offline render path at real size: ``gsplat_tpu_torch.cli.render``
    over phase 3's PLY, the 8 views with label maps and a session that
    hides label 3, displaces label 1 and recolours label 2; every PNG
@@ -66,12 +70,17 @@ L. the labeling path at real size, through ``gsplat_tpu_torch.cli.label``:
    ``make_adaptive_multiview_train_step`` over 4 views of the 2M scene,
    perturbed, padded to 1.25x capacity, with one ``densify_and_prune`` and
    ``zero_adam_rows`` after step 5; loss falls, parameters finite, nothing
-   dropped, B4, B1, B2 and B3 launched once per view per step; then one
-   single-view ``make_train_step`` step timed and split into its stages;
+   dropped, B4, B1, B2, B3 and the boundary gathers launched once per view
+   per step; then one single-view ``make_train_step`` step timed and split
+   into its stages, the fold into its scatter, B3 and the gathers (each
+   torch op of their plain version timed alone, and the kernel held
+   against it bit for bit on the training state, whose dead and
+   off-screen gaussians have no slot);
 5. times on the card (CUDA events, median of 10 after warm-up) of
-   projection, B4, the sort, B1, B2, B3, B5, ``torch.cumsum`` and the whole
-   render at both frames, B4 and B1 also replayed from a CUDA graph (the
-   kernel without its wrapper's host work), the plain versions' times,
+   projection, B4, the sort, B1, B2, B3, the boundary gathers, B5,
+   ``torch.cumsum`` and the whole render at both frames, B4, B1, B3 and the
+   gathers also replayed from a CUDA graph (the kernel without its
+   wrapper's host work), the plain versions' times,
    bounds (at the P1 rates and at the data sheet's), and peak device
    memory.
 
@@ -111,13 +120,15 @@ from gsplat_tpu_torch.label import vote
 from gsplat_tpu_torch.label.adapters import _nearest_resize
 from gsplat_tpu_torch.models import densify, trainer
 from gsplat_tpu_torch.render import blend, tiles
-from gsplat_tpu_torch.render.api import (_render_impl, enumeration_rows,
+from gsplat_tpu_torch.render.api import (_render_impl, _segment_sums_plain,
+                                         enumeration_rows,
                                          fold_instance_rows, pack_table,
                                          render, segment_sums)
 from gsplat_tpu_torch.render.projection import (CameraParams, project,
                                                 tile_grid)
 from gsplat_tpu_torch.scene import color_to_dc, dc_color, scene_from_numpy
 from gsplat_tpu_torch.utils import roofline, scan_probe
+from gsplat_tpu_torch.utils.blend_probe import segment_sum_ops
 from gsplat_tpu_torch.utils.profiling import graph_ms
 from gsplat_tpu_torch.utils.roofline import B4_OPS_PER_SLOT, HBM_BYTES_PER_S
 
@@ -388,6 +399,33 @@ class Frame:
         b = self.binning.inst_gauss.numel()
         return roofline.bound(2 * b * 16 * 4, b * 16, 0, rates)
 
+    def fold_cs(self):
+        """The boundary gathers' input: B3 over :meth:`fold_rows`."""
+        return blend.cumsum_rows(self.fold_rows())
+
+    def segment_sums(self, cs):
+        return segment_sums(cs, self.binning.enum_start,
+                            self.binning.enum_cnt)
+
+    def segment_sums_plain(self, cs):
+        return _segment_sums_plain(cs, self.binning.enum_start,
+                                   self.binning.enum_cnt)
+
+
+def fold_bound(cs, enum_start, enum_cnt, rates):
+    """The boundary gathers' least work on this data: each gaussian's start
+    and count (8 bytes) and output row (64 bytes); each distinct row of
+    ``cs`` that a gaussian with slots needs (64 bytes, read once); 16
+    subtractions a gaussian with slots."""
+    start, cnt = enum_start.long(), enum_cnt.long()
+    live = cnt > 0
+    hi = torch.clamp(start + cnt - 1, 0, cs.shape[0] - 1)[live]
+    lo = (start - 1)[live & (start > 0)]
+    rows = int(torch.unique(torch.cat([hi, lo])).numel())
+    n = start.numel()
+    return roofline.bound(n * 72 + rows * 64, int(live.sum()) * 16, 0,
+                          rates)
+
 
 def check_b4(frame: Frame) -> float:
     keys, gauss = frame.enum_keys()
@@ -584,11 +622,18 @@ def check_b2(frame: Frame, tag: str) -> float:
     return worst
 
 
-def check_b3(frame: Frame, tag: str) -> float:
+def check_b3(frame: Frame, tag: str, other: torch.Tensor) -> float:
     """B3 on the fold's real input against a float64 prefix sum: within
-    1e-6 of each column's peak |prefix|. Returns the max abs error."""
+    1e-6 of each column's peak |prefix|, zeros in columns 9-15; two more
+    calls equal to the first bit for bit, with a call on ``other`` (an
+    input of another size, whose output must not move either) between
+    them. Returns the max abs error."""
     x = frame.fold_rows()
     got = blend.cumsum_rows(x)
+    other_first = blend.cumsum_rows(other)
+    again = blend.cumsum_rows(x)
+    other_again = blend.cumsum_rows(other)
+    third = blend.cumsum_rows(x)
     lib = torch.cumsum(x, 0)
     want = torch.cumsum(x.double(), 0)
     torch.cuda.synchronize()
@@ -596,13 +641,36 @@ def check_b3(frame: Frame, tag: str) -> float:
     err = (got[:, :9].double() - want[:, :9]).abs().amax(0)
     lib_err = (lib[:, :9].double() - want[:, :9]).abs().amax(0)
     rel = (err / peak).tolist()
+    same = (torch.equal(got, again) and torch.equal(got, third)
+            and torch.equal(other_first, other_again))
     log({"check": "B3 cumsum_rows vs float64", "frame": tag,
          "rows": x.shape[0], "max_abs_err": float(err.max()),
          "max_err_over_column_peak": rel,
-         "torch_cumsum_f32_err_over_column_peak": (lib_err / peak).tolist()})
+         "torch_cumsum_f32_err_over_column_peak": (lib_err / peak).tolist(),
+         "three_calls_bit_equal": same, "interleaved_rows": other.shape[0]})
     if max(rel) > 1e-6 or got[:, 9:].any():
         raise AssertionError(f"B3 differs from float64 by {rel}")
+    if not same:
+        raise AssertionError("B3 is not bit-equal from call to call")
     return float(err.max())
+
+
+def check_segment_sums(cs, enum_start, enum_cnt, tag: str) -> float:
+    """The fold's boundary-gather kernel against ``_segment_sums_plain``,
+    bit for bit. Returns the max abs error (0)."""
+    before = segment_sums.launches
+    got = segment_sums(cs, enum_start, enum_cnt)
+    want = _segment_sums_plain(cs, enum_start, enum_cnt)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    log({"check": "segment_sums vs plain", "frame": tag,
+         "rows": cs.shape[0], "gaussians": enum_start.numel(),
+         "without_slots": int((enum_cnt == 0).sum()), "bit_equal": equal,
+         "launches": segment_sums.launches - before})
+    if not equal or segment_sums.launches != before + 1:
+        raise AssertionError(f"segment_sums differs from its plain version "
+                             f"at {tag}")
+    return 0.0
 
 
 def check_gradients(device) -> None:
@@ -635,7 +703,8 @@ def check_gradients(device) -> None:
 
 
 WRAPPERS = (tiles.enum_keys, blend.blend_tiles_fwd, blend.blend_tiles_bwd,
-            blend.cumsum_rows, blend.blend_tiles_vis, roofline.fma_chains,
+            blend.cumsum_rows, segment_sums, blend.blend_tiles_vis,
+            roofline.fma_chains,
             roofline.expf_chains, scan_probe.flat_scan_kernel,
             scan_probe.grouped_scan_kernel)
 
@@ -721,7 +790,7 @@ def train_main_path(scene, device):
          "wall_s": wall, "ms_per_step": wall / TRAIN_STEPS * 1e3})
     want = TRAIN_STEPS * TRAIN_VIEWS
     for name in ("enum_keys", "blend_tiles_fwd", "blend_tiles_bwd",
-                 "cumsum_rows"):
+                 "cumsum_rows", "segment_sums"):
         count = launches[name]
         if count != want:
             raise AssertionError(f"{name} launched {count} times in "
@@ -735,7 +804,11 @@ def train_main_path(scene, device):
 
 def time_train_step(state, labels, cam, target, device, card):
     """One single-view make_train_step step (l2) at the 2M frame, timed
-    whole and split into forward, B2, fold, projection backward and Adam."""
+    whole and split into forward, B2, fold, projection backward and Adam;
+    the fold split into its scatter, B3 and the boundary gathers (the
+    kernel, also replayed from a CUDA graph, and its plain version op by
+    op); the gather kernel held against its plain version on this state,
+    whose dead and off-screen slots have no enumeration slot."""
     camp = CameraParams.from_camera(cam, device)
     bg = torch.zeros(3, device=device)
     step = trainer.make_train_step((WIDTH, HEIGHT), CFG, lr=TRAIN_LR,
@@ -766,13 +839,20 @@ def time_train_step(state, labels, cam, target, device, card):
     row["fold"], _ = cuda_ms(lambda: fr.fold(drows), reps=5, warmup=1)
     rows = enumeration_rows(drows, fr.binning.je_sorted)
     cs = blend.cumsum_rows(rows)
+    check_segment_sums(cs, fr.binning.enum_start, fr.binning.enum_cnt,
+                       "2M training state")
     for part, fn in (
             ("fold: scatter", lambda: enumeration_rows(
                 drows, fr.binning.je_sorted)),
             ("fold: B3", lambda: blend.cumsum_rows(rows)),
-            ("fold: gathers", lambda: segment_sums(
-                cs, fr.binning.enum_start, fr.binning.enum_cnt))):
+            ("fold: gathers", lambda: fr.segment_sums(cs)),
+            ("fold: gathers plain", lambda: fr.segment_sums_plain(cs))):
         row[part], _ = cuda_ms(fn, reps=5, warmup=1)
+    row["fold: B3 graph"] = graph_ms(lambda: blend.cumsum_rows(rows))
+    row["fold: gathers graph"] = graph_ms(lambda: fr.segment_sums(cs))
+    log({"measure": "fold gathers op by op", "frame": "2M training state",
+         **segment_sum_ops(cs, fr.binning.enum_start, fr.binning.enum_cnt),
+         "card": card})
     opt = trainer.scaled_adam(TRAIN_LR)
     row["adam"], _ = cuda_ms(
         lambda: opt.update(grads, state.opt_state, state.params), reps=5,
@@ -1363,6 +1443,8 @@ def main(argv=None) -> int:
     check_gradients(device)
     err_b5 = check_b5(bench, "bench")
     check_b1_equals_b5(bench, "bench")
+    err_fold = check_segment_sums(bench.fold_cs(), bench.binning.enum_start,
+                                  bench.binning.enum_cnt, "bench")
     check_small_labeling(device)
     thin = Frame.from_projection(*thin_splats_projection(
         3000, width=200, height=136, seed=7, device=device), 200, 136)
@@ -1426,7 +1508,10 @@ def main(argv=None) -> int:
          "keys_equal": True, "slots": big.bb.total})
     err_b1 = max(err_b1, check_b1(big, "2M view 0"))
     err_b2 = max(err_b2, check_b2(big, "2M view 0"))
-    err_b3 = check_b3(big, "2M view 0")
+    err_b3 = check_b3(big, "2M view 0", bench.fold_rows())
+    err_fold = max(err_fold, check_segment_sums(
+        big.fold_cs(), big.binning.enum_start, big.binning.enum_cnt,
+        "2M view 0"))
     err_b5 = max(err_b5, check_b5(big, "2M view 0"))
     check_b1_equals_b5(big, "2M view 0")
     log({"main_frame_counts": big.instance_counts()})
@@ -1458,20 +1543,27 @@ def main(argv=None) -> int:
         peak = torch.cuda.max_memory_allocated()
         rows = fr.fold_rows()
         drows = fr.blend_bwd()
+        cs = blend.cumsum_rows(rows)
         for stage, fn in (("B2 blend_tiles_bwd", fr.blend_bwd),
                           ("fold", lambda: fr.fold(drows)),
                           ("B3 cumsum_rows", lambda: blend.cumsum_rows(rows)),
                           ("torch.cumsum", lambda: torch.cumsum(rows, 0)),
+                          ("segment_sums", lambda: fr.segment_sums(cs)),
                           ("B5 blend_tiles_vis", fr.blend_vis)):
             ms, runs = cuda_ms(fn)
             row[stage] = ms
             log({"measure": stage, "frame": tag, "ms": ms, "runs_ms": runs,
                  "card": card})
         # the kernels alone, replayed from a CUDA graph: at the bench frame
-        # B4 is shorter than its wrapper's host work (checks, allocations,
-        # the launch), which CUDA events around one call time instead
+        # B4, B3 and the gathers are shorter than their wrappers' host work
+        # (checks, allocations, the launch), which CUDA events around one
+        # call time instead
         for stage, fn in (("B4 enum_keys graph", fr.enum_keys),
-                          ("B1 blend_tiles_fwd graph", fr.blend)):
+                          ("B1 blend_tiles_fwd graph", fr.blend),
+                          ("B3 cumsum_rows graph",
+                           lambda: blend.cumsum_rows(rows)),
+                          ("segment_sums graph",
+                           lambda: fr.segment_sums(cs))):
             row[stage] = graph_ms(fn)
             log({"measure": stage, "frame": tag, "ms": row[stage],
                  "card": card})
@@ -1482,6 +1574,8 @@ def main(argv=None) -> int:
                 ("B1 plain", fr.blend_plain, plain_reps, 1),
                 ("B2 plain", fr.blend_bwd_plain, plain_reps, 1),
                 ("B3 plain", lambda: blend._cumsum_rows_plain(rows), 10, 1),
+                ("segment_sums plain", lambda: fr.segment_sums_plain(cs), 10,
+                 1),
                 ("B5 plain", fr.blend_vis_plain, b5_reps,
                  int(b5_reps > 2))):
             ms, runs = cuda_ms(fn, reps=reps, warmup=warmup)
@@ -1493,6 +1587,8 @@ def main(argv=None) -> int:
                              "B1 blend_tiles_fwd"))
         b4 = fr.b4_bound(rates)
         b3 = fr.b3_bound(rates)
+        fb = fold_bound(cs, fr.binning.enum_start, fr.binning.enum_cnt,
+                        rates)
         blends = {k: (fr.blend_bound(k, rates), fr.blend_bound(k, sheet))
                   for k in ("B1", "B2", "B5")}
         log({"measure": "render peak memory", "frame": tag,
@@ -1500,7 +1596,9 @@ def main(argv=None) -> int:
         bounds = {"B4": {"bound_ms": b4[0], "bound_by": b4[1],
                          "bytes": b4[2], "ops": b4[3]},
                   "B3": {"bound_ms": b3[0], "bound_by": b3[1],
-                         "bytes": b3[2], "ops": b3[3]}}
+                         "bytes": b3[2], "ops": b3[3]},
+                  "segment_sums": {"bound_ms": fb[0], "bound_by": fb[1],
+                                   "bytes": fb[2], "ops": fb[3]}}
         for k, (m, d) in blends.items():
             evals, tested, live = fr.pairs(0.0 if k == "B5"
                                            else RC.early_stop_eps)
@@ -1519,9 +1617,9 @@ def main(argv=None) -> int:
         log({"measure": "bounds", "frame": tag, **bounds,
              "rates": rates._asdict(), "rates_datasheet": sheet._asdict(),
              "glue_ms": row["glue"], "card": card})
-        results[tag] = (row, b4, b3, blends)
+        results[tag] = (row, b4, b3, fb, blends)
 
-    row, b4, b3, blends = results["2M view 0"]
+    row, b4, b3, fb, blends = results["2M view 0"]
     by_path = {k: {"render": launches[k], "train": train_launches[k],
                    "label": label_launches[k], "render_cli": cli_launches[k]}
                for k in launches}
@@ -1558,9 +1656,18 @@ def main(argv=None) -> int:
          "source": "gsplat_tpu_torch/csrc/cumsum_rows.cu",
          "replaces": "gsplat_tpu/render/blend_pallas.py:534",
          "launches": train_launches["cumsum_rows"], "max_abs_err": err_b3,
-         "ms": row["B3 cumsum_rows"], "plain_ms": row["B3 plain"],
+         "ms": row["B3 cumsum_rows"], "graph_ms": row["B3 cumsum_rows graph"],
+         "plain_ms": row["B3 plain"],
          "bound_ms": b3[0], "bound_by": b3[1],
          "library_ms": row["torch.cumsum"]},
+        {"name": "segment_sums", "route": "cuda",
+         "source": "gsplat_tpu_torch/csrc/fold_segments.cu",
+         "replaces": "gsplat_tpu/render/api.py:156-160 (XLA gathers)",
+         "launches": train_launches["segment_sums"],
+         "max_abs_err": err_fold, "ms": row["segment_sums"],
+         "graph_ms": row["segment_sums graph"],
+         "plain_ms": row["segment_sums plain"],
+         "bound_ms": fb[0], "bound_by": fb[1], "library_ms": None},
         {"name": "blend_tiles_vis", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/blend_vis.cu",
          "replaces": "gsplat_tpu/render/blend_pallas.py:250",
@@ -1570,13 +1677,14 @@ def main(argv=None) -> int:
          "library_ms": None},
     ]
     # "launches" counts each kernel on the path that brought it: the 8-view
-    # render for B4 and B1, the 10 training steps for B2 and B3, the
+    # render for B4 and B1, the 10 training steps for B2, B3 and the fold's
+    # boundary gathers (XLA glue in the JAX package, no TPU kernel), the
     # visible-mode label run of 311 views for B5, the roofline report for
     # P1 and the scan probe for P2; every path's counts are in
-    # launches_by_path. No single PyTorch call computes B4, B1, B2 or B5
-    # (B5's segment max onto gaussians is a scatter_reduce outside the
-    # kernel), hence no library time; B3's is torch.cumsum. Bounds take the
-    # P1 probes' rates, those of the data sheet beside them.
+    # launches_by_path. No single PyTorch call computes B4, B1, B2, B5 or
+    # the gathers (B5's segment max onto gaussians is a scatter_reduce
+    # outside the kernel), hence no library time; B3's is torch.cumsum.
+    # Bounds take the P1 probes' rates, those of the data sheet beside them.
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
     kernels += probe_rows

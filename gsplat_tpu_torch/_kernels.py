@@ -51,6 +51,7 @@ SIGNATURES = {
                   [_P] * 3 + [_I] * 6 + [_F] * 3 + [_P] * 4 + [_I]
                   + [_P] * 2),
     "cumsum_rows": ("gsplat_cumsum_rows", [_P, _I, _P, _I, _P, _P]),
+    "fold_segments": ("gsplat_fold_segments", [_P, _I, _P, _P, _I, _P, _P]),
     "blend_vis": ("gsplat_blend_vis",
                   [_P] * 3 + [_I] * 5 + [_F] * 2 + [_I] + [_P] * 5
                   + [_I, _P]),

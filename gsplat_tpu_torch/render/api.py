@@ -7,7 +7,8 @@ the caller names another device; the tensors' device decides whether the
 kernels or their plain versions run. The blend is one
 ``torch.autograd.Function`` on both devices (:class:`BlendSceneTiles`,
 the counterpart of ``blend_scene_windows`` and its custom VJP): forward
-kernel B1, backward kernel B2 and the gradient fold over kernel B3.
+kernel B1, backward kernel B2 and the gradient fold over kernel B3 and the
+boundary-gather kernel of :func:`segment_sums`.
 Projection and SH are plain torch, and autograd derives their VJP.
 ``render(impl="pallas_vis")`` is the labeler's visibility render over kernel
 B5 (:func:`_render_vis_impl`); ``render(impl="dense")`` the small-scene
@@ -21,6 +22,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.config import Config, DEFAULT
 from gsplat_tpu_torch.io.cameras import Camera
 from gsplat_tpu_torch.render import blend, blend_dense
@@ -72,10 +74,10 @@ def enumeration_rows(drows: torch.Tensor, je_sorted: torch.Tensor
     return rows
 
 
-def segment_sums(cs: torch.Tensor, enum_start: torch.Tensor,
-                 enum_cnt: torch.Tensor) -> torch.Tensor:
-    """Each gaussian's sum over its enumeration range, from the inclusive
-    prefix sum ``cs`` [B, 16]: cs[start + cnt - 1] - cs[start - 1]."""
+def _segment_sums_plain(cs: torch.Tensor, enum_start: torch.Tensor,
+                        enum_cnt: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segment_sums`: two boundary row
+    gathers, as the JAX VJP does them (``gsplat_tpu/render/api.py:156-160``)."""
     b = cs.shape[0]
     start = enum_start.long()
     cnt = enum_cnt.long()
@@ -86,6 +88,52 @@ def segment_sums(cs: torch.Tensor, enum_start: torch.Tensor,
     return torch.where((cnt > 0)[:, None], hi - lo, zero)
 
 
+def segment_sums(cs: torch.Tensor, enum_start: torch.Tensor,
+                 enum_cnt: torch.Tensor) -> torch.Tensor:
+    """Each gaussian's sum over its enumeration range, from the inclusive
+    prefix sum ``cs`` [B, 16] f32: cs[start + cnt - 1] - cs[start - 1]
+    (cs[-1] read as 0; 0 where cnt is 0), from [N] i32 ``enum_start`` and
+    ``enum_cnt``.
+
+    Replaces XLA glue, not a Pallas kernel: the gathers around kernel B3 in
+    ``gsplat_tpu/render/api.py:156-160``. On the card it launches
+    ``csrc/fold_segments.cu`` (one thread a gaussian's 4-column group,
+    16-byte loads and stores; bound by bytes), equal to the plain version
+    bit for bit; CPU tensors take the plain version."""
+    if (cs.dtype != torch.float32 or cs.dim() != 2
+            or cs.shape[1] != blend.PARAM_ROWS or cs.shape[0] == 0):
+        raise ValueError("segment_sums takes an f32 [B, 16] prefix sum, "
+                         "B >= 1")
+    n = enum_start.shape[0]
+    for t in (enum_start, enum_cnt):
+        if t.dtype != torch.int32 or t.shape != (n,):
+            raise ValueError("segment_sums takes [N] i32 starts and counts")
+        if t.device != cs.device:
+            raise ValueError("segment_sums takes tensors on one device")
+    if not (cs.is_contiguous() and enum_start.is_contiguous()
+            and enum_cnt.is_contiguous()):
+        raise ValueError("segment_sums takes contiguous tensors")
+    if cs.device.type == "cpu":
+        return _segment_sums_plain(cs, enum_start, enum_cnt)
+    if cs.device.type != "cuda":
+        raise ValueError(f"segment_sums: no kernel for {cs.device}")
+    if cs.shape[0] >= 2 ** 31 or 4 * n >= 2 ** 31 or cs.data_ptr() % 16:
+        raise ValueError("segment_sums takes fewer than 2^31 rows and 2^29 "
+                         "gaussians, 16-byte aligned")
+    out = torch.empty(n, blend.PARAM_ROWS, device=cs.device)
+    if n == 0:
+        return out
+    fn = _kernels.function("fold_segments")
+    err = fn(cs.data_ptr(), cs.shape[0], enum_start.data_ptr(),
+             enum_cnt.data_ptr(), n, out.data_ptr(), _kernels.stream(cs.device))
+    segment_sums.launches += 1
+    _kernels.check("fold_segments", err)
+    return out
+
+
+segment_sums.launches = 0
+
+
 def fold_instance_rows(drows: torch.Tensor, je_sorted: torch.Tensor,
                        enum_start: torch.Tensor, enum_cnt: torch.Tensor
                        ) -> torch.Tensor:
@@ -93,9 +141,9 @@ def fold_instance_rows(drows: torch.Tensor, je_sorted: torch.Tensor,
     per-gaussian gradient [N, 16] in original order, without a scatter-add
     (``gsplat_tpu/render/api.py:148-161``): the rows move to enumeration
     order, where each gaussian's instances are consecutive; one prefix sum
-    (kernel B3) and two boundary row gathers give each gaussian's segment
-    sum. The move and the gathers are plain torch, as they are plain XLA in
-    the JAX package."""
+    (kernel B3) and two boundary row gathers (:func:`segment_sums`) give
+    each gaussian's segment sum. The move is plain torch, as it is plain XLA
+    in the JAX package."""
     if drows.shape[0] == 0:
         return drows.new_zeros(enum_start.shape[0], drows.shape[1])
     cs = blend.cumsum_rows(enumeration_rows(drows, je_sorted))

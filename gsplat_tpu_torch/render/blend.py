@@ -486,8 +486,19 @@ def blend_tiles_bwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
 
 blend_tiles_bwd.launches = 0
 
-# rows per block of csrc/cumsum_rows.cu (kBlockRows); sizes its scratch
+# rows a tile and tiles a group of csrc/cumsum_rows.cu (kBlockRows, kGroup);
+# they size its scratch
 CUMSUM_BLOCK_ROWS = 512
+CUMSUM_GROUP = 64
+
+
+def cumsum_scratch_bytes(rows: int) -> int:
+    """Bytes of B3's scratch for ``rows`` rows (``csrc/cumsum_rows.cu``'s
+    ``scratch_bytes``): f64 column aggregates of each 512-row tile and of
+    each group of 64 tiles, then the u32 tile counter."""
+    nblk = -(-rows // CUMSUM_BLOCK_ROWS)
+    ngroups = -(-nblk // CUMSUM_GROUP)
+    return (nblk + ngroups) * PARAM_ROWS * 8 + 4
 
 
 def _cumsum_rows_plain(x: torch.Tensor) -> torch.Tensor:
@@ -497,11 +508,13 @@ def _cumsum_rows_plain(x: torch.Tensor) -> torch.Tensor:
 
 def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
     """Kernel B3 wrapper: inclusive prefix sum of an f32 [B, 16] array along
-    its rows (one call may launch several kernels; it counts as one launch).
+    its rows (one fill of the kernel's scratch, then one launch).
 
     Replaces ``gsplat_tpu/render/blend_pallas.py::_cumsum_rows_kernel``. On
-    the card it launches ``csrc/cumsum_rows.cu`` (per-block column totals, a
-    one-block scan of those, a per-block scan plus offset; bound by bytes);
+    the card it launches ``csrc/cumsum_rows.cu``: a single-pass scan that
+    reads and writes the array once (bound by bytes), each 512-row tile
+    offset by a look-back of fixed order over published tile and group
+    aggregates, so the output is the same bit for bit from call to call;
     CPU tensors take the plain version."""
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != PARAM_ROWS:
         raise ValueError("cumsum_rows takes an f32 [B, 16] array")
@@ -518,11 +531,11 @@ def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    nblk = -(-rows // CUMSUM_BLOCK_ROWS)
-    scratch = torch.empty(nblk, PARAM_ROWS, dtype=torch.float64,
+    nbytes = cumsum_scratch_bytes(rows)
+    scratch = torch.empty(-(-nbytes // 8), dtype=torch.float64,
                           device=x.device)
     fn = _kernels.function("cumsum_rows")
-    err = fn(x.data_ptr(), rows, scratch.data_ptr(), nblk, out.data_ptr(),
+    err = fn(x.data_ptr(), rows, scratch.data_ptr(), nbytes, out.data_ptr(),
              _kernels.stream(x.device))
     cumsum_rows.launches += 1
     _kernels.check("cumsum_rows", err)

@@ -1,7 +1,8 @@
-"""Where the time of the blend kernels B1, B5 and B2 and of the key
-enumeration B4 goes on the card.
+"""Where the time of the blend kernels B1, B5 and B2, of the key
+enumeration B4 and of the gradient fold's boundary gathers goes on the card.
 
     python -m gsplat_tpu_torch.utils.blend_probe [--out PATH]
+        [--b3-source PATH]
 
 On ``chip_smoke.py``'s 2M frame (2,000,000 gaussians of ``random_scene``
 seed 0, view 0 of 8 orbit views at 800x608) it prints one JSON line per
@@ -23,7 +24,22 @@ measurement and writes them all to ``--out`` (default
 - ``enum_variants``: B4 at this frame and at the bench frame (``bench.py``'s
   100k scene) against builds of ``csrc/enum_keys.cu`` that walk each
   gaussian's bbox in one thread (the design B4 had before its slot-parallel
-  one) and that store nothing, timed in turns with the committed build.
+  one) and that store nothing, timed in turns with the committed build;
+- ``b3_variants``: B3 at the bench frame's and this frame's fold sizes
+  (198,762 and 2,493,215 rows of seeded random rows) against builds of
+  ``csrc/cumsum_rows.cu`` whose look-back polls one item at a time with
+  acquire loads and publishes after a ``__threadfence()`` (bit-equal to
+  the committed build), and that skip the look-back (wrong sums: the
+  floor of the tile walk alone), and against ``--b3-source`` (another B3
+  source with the same C entry point, e.g. an earlier design from git
+  history, held against float64), timed in turns with the committed build
+  as CUDA graph replays and under CUDA events, beside a copy of the array
+  (``clone``);
+- ``segment_sum_ops``: each torch op of the fold's plain boundary gathers
+  (``render.api._segment_sums_plain``) on this frame's fold, timed alone
+  (CUDA events), beside the kernel that replaces them
+  (``render.api.segment_sums``). ``chip_smoke.py`` runs the same split on
+  the training state's fold.
 
 Needs the card and ``nvcc``; the builds go to ``build/blend_probe/``.
 """
@@ -46,7 +62,9 @@ from gsplat_tpu_torch.config import DEFAULT
 from gsplat_tpu_torch.io.cameras import look_at_camera, orbit_cameras
 from gsplat_tpu_torch.io.synthetic import random_scene
 from gsplat_tpu_torch.render import blend
-from gsplat_tpu_torch.render.api import pack_table
+from gsplat_tpu_torch.render.api import (_segment_sums_plain,
+                                         enumeration_rows, pack_table,
+                                         segment_sums)
 from gsplat_tpu_torch.render.projection import (CameraParams, project,
                                                 tile_grid)
 from gsplat_tpu_torch.render.tiles import (bin_tiles, depth_qkeys,
@@ -381,15 +399,131 @@ def enum_variants(device, fr: _Frame) -> list:
     return rows
 
 
+# build variants of B3: its look-back with acquire loads an item at a time
+# and a fence before each publication, and with no look-back at all
+B3_PUBLISH = """  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(bits)
+               : "memory");"""
+B3_PUBLISH_FENCED = """  __threadfence();
+  asm volatile("st.release.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(bits)
+               : "memory");"""
+B3_LANE_SUM = """  double acc;
+  for (;;) {
+    acc = 0.0;
+    bool ready = true;
+#pragma unroll 8
+    for (int i = l; i < n; i += kLanes) {
+      const long long v =
+          ld_relaxed(vals + static_cast<size_t>(base + i) * kCols + c);
+      ready &= v != kUnset;
+      acc += __longlong_as_double(v);
+    }
+    if (ready) break;
+    __nanosleep(32);
+  }
+  part[l][c] = acc;"""
+B3_LANE_SUM_ACQUIRE = """  double acc = 0.0;
+  for (int i = l; i < n; i += kLanes) {
+    long long v;
+    for (;;) {
+      asm volatile("ld.acquire.gpu.global.b64 %0, [%1];"
+                   : "=l"(v)
+                   : "l"(vals + static_cast<size_t>(base + i) * kCols + c)
+                   : "memory");
+      if (v != kUnset) break;
+      __nanosleep(32);
+    }
+    acc += __longlong_as_double(v);
+  }
+  part[l][c] = acc;"""
+B3_NO_LOOK_BACK = "  part[l][c] = 0.0;"
+
+
+def b3_variants(device, source=None) -> list:
+    """B3's look-back against builds that poll with acquire loads an item
+    at a time and fence each publication, that skip it, and ``source``;
+    times in turns (graph replay and CUDA events) at the bench frame's
+    and the 2M frame's fold sizes."""
+    text = (_kernels.CSRC / "cumsum_rows.cu").read_text()
+    builds = {
+        "acquire and fence": _load(
+            "cumsum_rows_acquire", "cumsum_rows",
+            _edit(_edit(text, B3_PUBLISH, B3_PUBLISH_FENCED), B3_LANE_SUM,
+                  B3_LANE_SUM_ACQUIRE)),
+        "no look-back": _load("cumsum_rows_no_look_back", "cumsum_rows",
+                              _edit(text, B3_LANE_SUM, B3_NO_LOOK_BACK))}
+    if source is not None:
+        builds[f"source {source}"] = _load("cumsum_rows_source",
+                                           "cumsum_rows",
+                                           Path(source).read_text())
+    gen = torch.Generator(device=device).manual_seed(5)
+    rows_out = []
+    for rows in (198_762, 2_493_215):
+        x = torch.randn(rows, 16, generator=gen, device=device) + 0.1
+        want = torch.cumsum(x.double(), 0)
+        base = blend.cumsum_rows(x)
+        call = lambda: blend.cumsum_rows(x)
+        for tag, (_, fn, info) in builds.items():
+            with _Swap("cumsum_rows", fn):
+                got = call()
+            err = (got.double() - want).abs().amax(0) / want.abs().amax(0)
+            rows_out.append({
+                "rows": rows, "variant": tag, "build": info,
+                "bit_equal": torch.equal(got, base),
+                "max_err_over_column_peak": float(err.max()),
+                "graph_ms": _in_turns(("cumsum_rows", fn), call, graph_ms),
+                "ms": _in_turns(("cumsum_rows", fn), call),
+                "clone_graph_ms": graph_ms(x.clone)})
+    return rows_out
+
+
+def segment_sum_ops(cs: torch.Tensor, enum_start: torch.Tensor,
+                    enum_cnt: torch.Tensor) -> dict:
+    """Milliseconds (CUDA events, median of 5 after a warm-up) of each
+    torch op of ``_segment_sums_plain``, run one at a time on its own
+    inputs, of the whole plain function and of the kernel."""
+    b = cs.shape[0]
+    start = enum_start.long()
+    cnt = enum_cnt.long()
+    zero = torch.zeros((), device=cs.device)
+    hi_idx = torch.clamp(start + cnt - 1, 0, b - 1)
+    lo_idx = torch.clamp_min(start - 1, 0)
+    hi, lo_rows = cs[hi_idx], cs[lo_idx]
+    lo = torch.where((start > 0)[:, None], lo_rows, zero)
+    diff = hi - lo
+    ops = (
+        ("enum_start.long()", lambda: enum_start.long()),
+        ("enum_cnt.long()", lambda: enum_cnt.long()),
+        ("zeros(())", lambda: torch.zeros((), device=cs.device)),
+        ("clamp(start + cnt - 1)", lambda: torch.clamp(start + cnt - 1, 0,
+                                                       b - 1)),
+        ("cs[hi_idx]", lambda: cs[hi_idx]),
+        ("clamp_min(start - 1)", lambda: torch.clamp_min(start - 1, 0)),
+        ("cs[lo_idx]", lambda: cs[lo_idx]),
+        ("where(start > 0)", lambda: torch.where((start > 0)[:, None],
+                                                 lo_rows, zero)),
+        ("hi - lo", lambda: hi - lo),
+        ("where(cnt > 0)", lambda: torch.where((cnt > 0)[:, None], diff,
+                                               zero)),
+        ("plain, whole", lambda: _segment_sums_plain(cs, enum_start,
+                                                     enum_cnt)),
+        ("kernel", lambda: segment_sums(cs, enum_start, enum_cnt)))
+    return {"rows": b, "gaussians": start.numel(),
+            "without_slots": int((cnt == 0).sum()),
+            "ms": {name: _ms(fn, reps=5) for name, fn in ops}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(DEFAULT_OUT))
+    ap.add_argument("--b3-source", default=None,
+                    help="another csrc/cumsum_rows.cu to time against")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("blend_probe: no CUDA device", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
-    _kernels.build(("enum_keys", "blend_fwd", "blend_bwd", "blend_vis"))
+    _kernels.build(("enum_keys", "blend_fwd", "blend_bwd", "blend_vis",
+                    "cumsum_rows", "fold_segments"))
     fr = _Frame(device)
     b = fr.binning.tile_bounds
     report = {"device": torch.cuda.get_device_name(0),
@@ -405,6 +539,10 @@ def main(argv=None) -> int:
     report["variants"] = (blend_variants(fr, "blend_fwd")
                           + blend_variants(fr, "blend_bwd"))
     report["enum_variants"] = enum_variants(device, fr)
+    rows = enumeration_rows(fr.bwd(), fr.binning.je_sorted)
+    report["b3_variants"] = b3_variants(device, args.b3_source)
+    report["segment_sum_ops"] = segment_sum_ops(
+        blend.cumsum_rows(rows), fr.binning.enum_start, fr.binning.enum_cnt)
     for key, value in report.items():
         print(json.dumps({key: value}), flush=True)
     out = Path(args.out)

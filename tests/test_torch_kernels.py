@@ -1,6 +1,6 @@
 """The port's CUDA kernels (B4 ``enum_keys``, B1 ``blend_tiles_fwd``, B2
-``blend_tiles_bwd``, B3 ``cumsum_rows``, B5 ``blend_tiles_vis``), their
-wrappers, the skip test of B5 and B2 (``csrc/blend_cull.cuh``) through its
+``blend_tiles_bwd``, B3 ``cumsum_rows``, the fold's boundary gathers
+``segment_sums``, B5 ``blend_tiles_vis``), their wrappers, the skip test of B5 and B2 (``csrc/blend_cull.cuh``) through its
 plain mirror, and the vote on the card against the CPU.
 
 This file imports neither jax nor ``gsplat_tpu``, so on a machine with a card
@@ -200,6 +200,30 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
     for bad_x in (torch.zeros(10, 8), x.double(), torch.zeros(16, 10).t()):
         with pytest.raises(ValueError):
             blend.cumsum_rows(bad_x)
+
+
+def _segment_inputs(device, rows=6):
+    cs = torch.arange(rows * 16, dtype=torch.float32,
+                      device=device).reshape(rows, 16)
+    start = torch.tensor([0, 2, 2, 5], dtype=torch.int32, device=device)
+    cnt = torch.tensor([2, 0, 3, 1], dtype=torch.int32, device=device)
+    return cs, start, cnt
+
+
+def _refused_segment_inputs(cs, start, cnt):
+    return [(cs.double(), start, cnt), (cs[:, :8].contiguous(), start, cnt),
+            (cs[:0], start, cnt), (cs.t().contiguous().t(), start, cnt),
+            (cs, start.long(), cnt), (cs, start, cnt.long()),
+            (cs, start, cnt[:-1]), (cs, start[::2], cnt[::2]),
+            (cs, start[:, None], cnt)]
+
+
+def test_segment_sums_wrapper_rejects_what_the_kernel_does_not_take():
+    cs, start, cnt = _segment_inputs("cpu")
+    assert api.segment_sums(cs, start, cnt).shape == (4, 16)
+    for args in _refused_segment_inputs(cs, start, cnt):
+        with pytest.raises(ValueError):
+            api.segment_sums(*args)
 
 
 # --- the skip test of B5 and B2 (csrc/blend_cull.cuh), through its mirror ---
@@ -628,7 +652,7 @@ def test_blend_kernel_at_eps_0_equals_vis_kernel(card, frame, tile_size):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [1, 511, 512, 513, 100_003])
+@pytest.mark.parametrize("rows", [1, 511, 512, 513, 100_003, 2_500_096])
 def test_cumsum_rows_kernel_matches_float64(card, rows):
     gen = torch.Generator(device=card).manual_seed(rows)
     # a drift of 0.1 per row, as gradient rows have, so the peak prefix is
@@ -640,8 +664,81 @@ def test_cumsum_rows_kernel_matches_float64(card, rows):
     assert blend.cumsum_rows.launches == before + 1
     want = torch.cumsum(x.double(), 0)
     err = (got.double() - want).abs().amax(0) / want.abs().amax(0)
-    # an f32 sum chain of rows / 32768 + 112 additions per output
+    # each output is an f32 prefix of at most 32 rows plus one f32 rounding
+    # of an f64 offset, and one f32 addition of the two
     assert (err <= 1e-6).all(), err
+
+
+@pytest.mark.gpu
+def test_cumsum_rows_kernel_is_the_same_from_call_to_call(card):
+    """Three calls at 2.5M rows equal bit for bit, with calls of other
+    sizes between them: no call sees an earlier call's flags, and the
+    look-back adds in one order whatever order the blocks run in."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn(2_500_096, 16, generator=gen, device=card) + 0.1
+    small = torch.randn(100_003, 16, generator=gen, device=card)
+    first = blend.cumsum_rows(x)
+    small_first = blend.cumsum_rows(small)
+    second = blend.cumsum_rows(x)
+    tiny = blend.cumsum_rows(x[:513])
+    third = blend.cumsum_rows(x)
+    small_again = blend.cumsum_rows(small)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, third)
+    assert torch.equal(small_first, small_again)
+    # a prefix of the array: its tiles' look-back is the same
+    assert torch.equal(tiny, first[:513])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4, 1000, 300_001])
+def test_segment_sums_kernel_matches_plain(card, n):
+    """The boundary-gather kernel against its plain version bit for bit:
+    the hand-made case, then random counts with a third of the gaussians
+    without slots (as the training state's dead and off-screen ones), the
+    first at start 0 and the last ending at row B - 1."""
+    if n == 4:
+        cs, start, cnt = _segment_inputs(card)
+    else:
+        rng = np.random.default_rng(n)
+        counts = rng.poisson(1.5, size=n) * (rng.uniform(size=n) > 0.33)
+        counts[0] = counts[-1] = 2
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        rows = int(counts.sum())
+        cnt = torch.from_numpy(counts.astype(np.int32)).to(card)
+        start = torch.from_numpy(starts.astype(np.int32)).to(card)
+        cs = torch.cumsum(torch.from_numpy(rng.normal(
+            size=(rows, 16)).astype(np.float32)).to(card), 0)
+    before = api.segment_sums.launches
+    got = api.segment_sums(cs, start, cnt)
+    want = api._segment_sums_plain(cs, start, cnt)
+    torch.cuda.synchronize()
+    assert api.segment_sums.launches == before + 1
+    assert torch.equal(got, want)
+    assert bool((cnt == 0).any()) and not got[cnt == 0].any()
+
+
+@pytest.mark.gpu
+def test_fold_kernels_reject_what_they_do_not_take(card):
+    """On the card the wrappers also refuse rows that are not 16-byte
+    aligned (a view one float into a buffer), besides what the CPU test of
+    the wrappers refuses."""
+    cs, start, cnt = _segment_inputs(card)
+    for args in _refused_segment_inputs(cs, start, cnt):
+        with pytest.raises(ValueError):
+            api.segment_sums(*args)
+    buf = torch.zeros(6 * 16 + 1, device=card)
+    skewed = buf[1:].view(6, 16)
+    assert skewed.data_ptr() % 16
+    with pytest.raises(ValueError):
+        api.segment_sums(skewed, start, cnt)
+    with pytest.raises(ValueError):
+        blend.cumsum_rows(skewed)
+    for bad in (cs[:, :8].contiguous(), cs.double(), cs.t().contiguous().t()):
+        with pytest.raises(ValueError):
+            blend.cumsum_rows(bad)
+    with pytest.raises(ValueError):
+        api.segment_sums(cs, start.cpu(), cnt)
 
 
 @pytest.mark.gpu
@@ -652,7 +749,8 @@ def test_render_gradients_on_card_match_cpu(card):
     target = torch.from_numpy(np.random.default_rng(2).uniform(
         size=(96, 128, 3)).astype(np.float32))
     grads = {}
-    before = (blend.blend_tiles_bwd.launches, blend.cumsum_rows.launches)
+    before = (blend.blend_tiles_bwd.launches, blend.cumsum_rows.launches,
+              api.segment_sums.launches)
     for dev in (card, torch.device("cpu")):
         s = scene.to(dev)
         params = trainer.SceneParams.from_scene(s)
@@ -661,8 +759,8 @@ def test_render_gradients_on_card_match_cpu(card):
         out = api.render(params.to_scene(s.labels), cam, device=dev)
         loss = trainer.l2_loss(out["image"], target.to(dev))
         grads[dev.type] = [g.cpu() for g in torch.autograd.grad(loss, params)]
-    assert (blend.blend_tiles_bwd.launches,
-            blend.cumsum_rows.launches) == (before[0] + 1, before[1] + 1)
+    assert (blend.blend_tiles_bwd.launches, blend.cumsum_rows.launches,
+            api.segment_sums.launches) == tuple(b + 1 for b in before)
     # projection runs through the card's and the host's exp/log/sqrt, which
     # may move one alpha across the 1/255 cut: 1e-3 of each tensor's peak
     for f, g_card, g_cpu in zip(trainer.SceneParams._fields, grads["cuda"],

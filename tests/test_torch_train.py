@@ -282,6 +282,46 @@ def test_cumsum_rows_plain_matches_float64(rows):
         torch.from_numpy(x)).numpy(), got)
 
 
+# --- (d2) the fold's boundary gathers vs the JAX formula -------------------
+
+# hand-made (rows, starts, counts): gaussians without slots (one starting at
+# B), one at start 0, the last ending at row B - 1, one owning every row
+SEGMENT_CASES = {
+    "cnt_zero": (6, [0, 2, 2, 5, 6], [2, 0, 3, 1, 0]),
+    "start_zero": (5, [0, 0, 1], [1, 0, 4]),
+    "last_ends_at_b_minus_1": (7, [0, 3, 4], [3, 1, 3]),
+    "one_owns_every_row": (9, [0, 9, 9], [9, 0, 0]),
+}
+
+
+@pytest.mark.parametrize("case", list(SEGMENT_CASES))
+def test_segment_sums_plain_matches_jax_formula(case):
+    rows, start, cnt = SEGMENT_CASES[case]
+    cs = np.cumsum(np.random.default_rng(rows).normal(
+        size=(rows, 16)).astype(np.float32), axis=0, dtype=np.float32)
+    start = np.array(start, np.int32)
+    cnt = np.array(cnt, np.int32)
+    # gsplat_tpu/render/api.py:156-160, in numpy and as the JAX VJP runs it
+    zero = np.float32(0.0)
+    hi = cs[np.clip(start + cnt - 1, 0, rows - 1)]
+    lo = np.where((start > 0)[:, None],
+                  cs[np.clip(np.maximum(start - 1, 0), 0, rows - 1)], zero)
+    want = np.where((cnt > 0)[:, None], hi - lo, zero)
+    jcs, js, jc = jnp.asarray(cs), jnp.asarray(start), jnp.asarray(cnt)
+    jhi = jcs.at[jnp.clip(js + jc - 1, 0, rows - 1)].get(mode="clip")
+    jlo = jnp.where((js > 0)[:, None],
+                    jcs.at[jnp.maximum(js - 1, 0)].get(mode="clip"), 0.0)
+    np.testing.assert_array_equal(
+        np.asarray(jnp.where((jc > 0)[:, None], jhi - jlo, 0.0)), want)
+    tcs, ts, tc = (torch.from_numpy(a) for a in (cs, start, cnt))
+    got = tapi._segment_sums_plain(tcs, ts, tc).numpy()
+    np.testing.assert_array_equal(got, want)
+    before = tapi.segment_sums.launches
+    np.testing.assert_array_equal(tapi.segment_sums(tcs, ts, tc).numpy(),
+                                  want)
+    assert tapi.segment_sums.launches == before   # no kernel on the CPU
+
+
 # --- (e) losses and their gradients ---------------------------------------
 
 @pytest.mark.parametrize("name", ["l1", "l2", "psnr", "ssim", "dssim_l1"])
