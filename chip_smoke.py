@@ -13,14 +13,17 @@ LABEL_AGREEMENT_BAR comes from. Phases (any failure stops the run):
 0. the card's name and power limit, as nvidia-smi reports them;
 1. build every kernel from ``gsplat_tpu_torch/csrc`` (one nvcc per source,
    all at once) and print build seconds and ptxas' registers, shared memory
-   and spills;
+   and spills (P2's kernels must show no stack frame and no spill);
 P. the probes: ``python -m gsplat_tpu_torch.utils.roofline``'s path (the
    card's f32 FMA and expf rates from kernels P1, and the bench frame's
    SOL), then ``utils.scan_probe``'s check and bench (kernels P2); both P1
    chains against their plain versions (relative 1e-5) on a small launch
-   and at the main path's, both scans against theirs and float64 cumprod /
-   cumsum (1e-5, 1e-3), the rounds against theirs at the bench's launch,
-   and the probes' times, plain and library times and bounds; the measured
+   and at the main path's, both scans against theirs (flat bit for bit,
+   grouped within 1e-6) and float64 cumprod / cumsum (1e-5, 1e-3), the
+   rounds against theirs at 1 and 1,024 passes and at the bench's launch,
+   the scans' rounds replayed from a CUDA graph at 1,024 and 256 passes
+   (the first at least 2.5x the second, or the passes were collapsed), and
+   the probes' times, plain and library times and bounds; the measured
    rates then bound every kernel in phase 5, the data sheet's beside them;
 2. the repo's bench frame (100k gaussians, 800x608, ``bench.py``): each
    kernel against its plain PyTorch version (B4 keys exactly equal, B1 within
@@ -93,6 +96,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import shutil
 import statistics
 import struct
@@ -1023,34 +1027,43 @@ def check_p1(device) -> dict:
     return errs
 
 
+def p2_agrees(variant: str, got, want) -> bool:
+    """A P2 kernel's output against its plain version's: flat bit for bit
+    (both combine in scan_flat's order), grouped within 1e-6."""
+    if variant == "flat":
+        return torch.equal(got, want)
+    return float((got - want).abs().max()) <= 1e-6
+
+
 def check_p2(device) -> dict:
-    """Both scan kernels against their plain versions and float64
-    cumprod / cumsum (bars 1e-5 and 1e-3, scripts/profile_scan_variants.py
-    :84) on [64, 1000], and the rounds against the plain rounds (1e-6) at
-    1 and 1024 passes. Returns each variant's max abs error against its
-    plain version."""
+    """Both scan kernels against their plain versions (:func:`p2_agrees`)
+    and float64 cumprod / cumsum (bars 1e-5 and 1e-3,
+    scripts/profile_scan_variants.py:84) on [64, 1000], and the rounds
+    against the plain rounds at 1 and 1024 passes. Returns each variant's
+    max abs error against its plain version."""
     x = scan_probe.probe_input(device, 1000)
     errs = {}
     for variant in ("flat", "grouped"):
-        res = {}
+        res, agree = {}, True
         for op in ("prod", "sum"):
             got = scan_probe.scan(x, op, variant)
             want = scan_probe._scan_plain(x, op, variant)
             ref = (torch.cumprod if op == "prod" else torch.cumsum)(
                 x.double(), 0)
             torch.cuda.synchronize()
+            agree &= p2_agrees(variant, got, want)
             res[op] = (float((got - want).abs().max()),
                        float((got.double() - ref).abs().max()))
         for reps in (1, scan_probe.BENCH_REPS):
             got = scan_probe.scan_rounds(x, variant, reps)
             want = scan_probe._rounds_plain(x, variant)
             torch.cuda.synchronize()
+            agree &= p2_agrees(variant, got, want)
             res[f"rounds x{reps}"] = (float((got - want).abs().max()), None)
         log({"check": f"P2 {variant} scan vs plain and float64",
-             "shape": list(x.shape),
+             "shape": list(x.shape), "agrees_with_plain": agree,
              "max_abs_err_vs_plain_and_float64": res})
-        if not (res["prod"][1] < 1e-5 and res["sum"][1] < 1e-3
-                and max(v[0] for v in res.values()) <= 1e-6):
+        if not (agree and res["prod"][1] < 1e-5 and res["sum"][1] < 1e-3):
             raise AssertionError(f"P2 {variant} scan is wrong: {res}")
         errs[variant] = max(v[0] for v in res.values())
     return errs
@@ -1174,14 +1187,26 @@ def probe_phase(device, card) -> dict:
             ("grouped", "scripts/profile_scan_variants.py:71")):
         fn = scan_probe.KERNELS[variant]
         ms, runs = cuda_ms(lambda: scan_probe.scan_rounds(xs, variant, reps))
+        # the kernel alone, at the bench's passes and at a quarter of them:
+        # passes the compiler hoisted or collapsed would not scale
+        graph = {n: graph_ms(
+            lambda n=n: scan_probe.scan_rounds(xs, variant, n))
+            for n in (reps, reps // 4)}
+        ratio = graph[reps] / graph[reps // 4]
+        log({"measure": f"P2 {variant} rounds replayed from a CUDA graph",
+             "graph_ms_by_passes": graph, "ratio": ratio, "card": card})
+        if not ratio >= 2.5:
+            raise AssertionError(f"P2 {variant}: {reps} passes take only "
+                                 f"{ratio:.2f}x the time of {reps // 4}")
         # the main path's launch (the bench's input and passes) against the
         # plain rounds
-        err = float((scan_probe.scan_rounds(xs, variant, reps)
-                     - scan_probe._rounds_plain(xs, variant)).abs().max())
+        got = scan_probe.scan_rounds(xs, variant, reps)
+        want = scan_probe._rounds_plain(xs, variant)
+        err = float((got - want).abs().max())
         log({"check": f"P2 {variant} rounds vs plain at the main path's "
              "launch", "shape": list(xs.shape), "passes": reps,
              "max_abs_err": err})
-        if not err <= 1e-6:
+        if not p2_agrees(variant, got, want):
             raise AssertionError(f"P2 {variant} rounds differ from their plain "
                                  f"version by {err} at {reps} passes")
         errs2[variant] = max(errs2[variant], err)
@@ -1192,6 +1217,7 @@ def probe_phase(device, card) -> dict:
         bs = roofline.bound(nbytes, ops, 0, sheet)
         log({"measure": f"P2 {variant} rounds", "passes": reps,
              "shape": list(xs.shape), "ms": ms, "runs_ms": runs,
+             "graph_ms": graph[reps],
              "plain_ms": plain_ms, "library_ms": lib_ms,
              "library_runs_ms": lib_runs, "bound_ms": b[0],
              "bound_by": b[1], "bound_ms_datasheet": bs[0], "card": card})
@@ -1200,8 +1226,9 @@ def probe_phase(device, card) -> dict:
                      "replaces": replaces,
                      "launches": p2_launches[fn.__name__],
                      "max_abs_err": errs2[variant], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b[0],
-                     "bound_by": b[1], "bound_ms_datasheet": bs[0],
+                     "graph_ms": graph[reps], "plain_ms": plain_ms,
+                     "bound_ms": b[0], "bound_by": b[1],
+                     "bound_ms_datasheet": bs[0],
                      "bound_by_datasheet": bs[1], "library_ms": lib_ms})
     del wide
     return peaks, rows
@@ -1414,6 +1441,14 @@ def main(argv=None) -> int:
         for line in info["ptxas"].splitlines():
             if "ptxas info" in line or "spill" in line:
                 log(f"[{name}] {line.strip()}")
+    # P2 holds each column's 64 rows in registers: a stack frame or a spill
+    # means an array went to local memory
+    local = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads",
+                       built.get("scan_probe", {}).get("ptxas", ""))
+    if "scan_probe" in built and (
+            not local or any(int(n) for row in local for n in row)):
+        raise AssertionError(f"P2's kernels use local memory: {local}")
     log({"occupancy": {name: _kernels.occupancy(name)
                        for name in ("blend_fwd", "blend_vis", "blend_bwd")},
          "sms": torch.cuda.get_device_properties(0).multi_processor_count})

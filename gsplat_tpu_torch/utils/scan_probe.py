@@ -2,25 +2,29 @@
 
 Counterpart of ``scripts/profile_scan_variants.py``, which compares two
 scans of the blend kernels' chunk axis inside Pallas kernels: ``flat``
-(Hillis-Steele over the 64 rows) and ``grouped`` (within 8-row groups, then
-the group totals, then the spread). Here each is one CUDA kernel of
-``csrc/scan_probe.cu``, with the 64-row axis across threads:
+(log steps 1, 2, ..., 32 over the 64 rows) and ``grouped`` (within 8-row
+groups, then the group totals, then the spread). Here each is one CUDA
+kernel of ``csrc/scan_probe.cu``, one column a thread with its 64 rows in
+registers:
 
 - :func:`scan` ``(x, op, variant)``: an inclusive product or sum scan down
   axis 0 of an f32 [64, P] array (the TPU's ``k_prod`` / ``k_sum``);
 - :func:`scan_rounds` ``(x, variant)``: four rounds of
   ``acc <- cumsum(cumprod(acc)) * 1e-6 + x`` (the TPU's ``kernel``).
 
-The plain versions combine in the kernels' order; they agree with the TPU
-scans to rounding (the flat kernel's last step joins the two 32-row halves,
-the grouped kernel scans each group in sequence)::
+The plain versions combine in the kernels' order: flat in the TPU
+``scan_flat``'s, so the two agree bit for bit; grouped each group in
+sequence, so it agrees with ``scan_grouped`` to rounding::
 
     python -m gsplat_tpu_torch.utils.scan_probe [--bench] [--device cpu]
+        [--source PATH]
 
 checks both variants against float64 ``cumprod`` / ``cumsum`` on a seeded
 [64, 128] input (the bars of ``_check``: 1e-5 for the product, 1e-3 for the
 sum) and, with ``--bench``, times the rounds of both on [64, 1024] over
-1024 passes.
+1024 passes. On the card, ``--source`` times another build of a
+``csrc/scan_probe.cu`` with the same C entry point (e.g. an earlier design
+from git history) in turns with the committed build (:func:`compare`).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -35,7 +40,8 @@ import torch
 
 from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.scene import resolve_device
-from gsplat_tpu_torch.utils.profiling import device_timer
+from gsplat_tpu_torch.utils.blend_probe import _in_turns, _load, _Swap
+from gsplat_tpu_torch.utils.profiling import device_timer, graph_ms
 
 CHUNK = 64
 GROUP = 8
@@ -51,19 +57,14 @@ def _combine(op: str):
 
 
 def _flat_plain(x: torch.Tensor, op: str) -> torch.Tensor:
-    """The flat kernel's scan: Hillis-Steele steps 1..16 inside each 32-row
-    half, then the upper half combined with row 31."""
+    """The flat kernel's scan, in ``scan_flat``'s order: log steps
+    k = 1, 2, ..., 32 over the 64 rows, row r combining row r - k."""
     f = _combine(op)
-    halves = []
-    for h in x.split(32, dim=0):
-        y = h
-        k = 1
-        while k < 32:
-            y = torch.cat([y[:k], f(y[k:], y[:-k])], dim=0)
-            k *= 2
-        halves.append(y)
-    lo, hi = halves
-    return torch.cat([lo, f(hi, lo[-1:])], dim=0)
+    k = 1
+    while k < CHUNK:
+        x = torch.cat([x[:k], f(x[k:], x[:-k])], dim=0)
+        k *= 2
+    return x
 
 
 def _grouped_plain(x: torch.Tensor, op: str) -> torch.Tensor:
@@ -159,9 +160,9 @@ def scan(x: torch.Tensor, op: str, variant: str) -> torch.Tensor:
 def scan_rounds(x: torch.Tensor, variant: str, reps: int = 1
                 ) -> torch.Tensor:
     """Four rounds of ``acc <- scan_sum(scan_prod(acc)) * 1e-6 + x`` on f32
-    [64, P], the TPU probe's load. On the card ``reps`` passes re-read ``x``
-    and write the same output (the TPU grid's re-read block), to time a
-    compute-bound launch; the result is one pass's.
+    [64, P], the TPU probe's load. On the card the kernel runs ``reps``
+    passes over ``x`` held on chip (the TPU grid's VMEM-resident block), to
+    time a compute-bound launch; the result is one pass's, bit for bit.
 
     Replaces ``scripts/profile_scan_variants.py::kernel``; CPU tensors take
     the plain version (once)."""
@@ -203,18 +204,48 @@ def bench(device: torch.device) -> dict:
         for variant in _VARIANTS}
 
 
+def compare(device: torch.device, source: str) -> dict:
+    """The rounds of both variants on [64, 1024] at 1024 and 256 passes,
+    through a build of ``source`` and through the committed build in turns,
+    replayed from a CUDA graph (ms a launch), each build's output held
+    against the plain rounds (flat bit for bit, grouped max abs error).
+    The builds go to ``build/blend_probe/``."""
+    _, fn, info = _load("scan_probe_source", "scan_probe",
+                        Path(source).read_text())
+    x = probe_input(device, BENCH_COLS)
+    out = {"source": source, "build": info}
+    for variant in _VARIANTS:
+        want = _rounds_plain(x, variant)
+        for reps in (BENCH_REPS, BENCH_REPS // 4):
+            call = lambda: scan_rounds(x, variant, reps)
+            with _Swap("scan_probe", fn):
+                got = {"variant": call()}
+            got["committed"] = call()
+            out[f"{variant} x{reps}"] = {
+                "bit_equal_to_plain": {k: torch.equal(v, want)
+                                       for k, v in got.items()},
+                "max_abs_err_vs_plain": {k: float((v - want).abs().max())
+                                         for k, v in got.items()},
+                "graph_ms": _in_turns(("scan_probe", fn), call, graph_ms)}
+    return out
+
+
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bench", action="store_true",
                     help="also time the rounds of both variants")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
+    ap.add_argument("--source", default=None,
+                    help="another csrc/scan_probe.cu to time against (card)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     res = check(device)
     if args.bench:
         res["rounds_s_per_launch"] = bench(device)
         res["passes_per_launch"] = BENCH_REPS if device.type == "cuda" else 1
+    if args.source is not None:
+        res["compare"] = compare(device, args.source)
     print(json.dumps(res))
     return 0 if res["ok"] else 1
 

@@ -940,25 +940,36 @@ def test_measure_peaks_on_card(card):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", ["flat", "grouped"])
-@pytest.mark.parametrize("cols", [128, 1000])
+@pytest.mark.parametrize("cols", [33, 128, 1000])
 def test_scan_kernels_match_plain(card, variant, cols):
     from gsplat_tpu_torch.utils import scan_probe
     x = scan_probe.probe_input(card, cols)
     kernel = scan_probe.KERNELS[variant]
-    before = kernel.launches
+
+    def launched_once(call):
+        before = kernel.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        return got
+
     for op in ("prod", "sum"):
-        got = scan_probe.scan(x, op, variant)
+        got = launched_once(lambda: scan_probe.scan(x, op, variant))
         want = scan_probe._scan_plain(x, op, variant)
         ref = (torch.cumprod if op == "prod" else torch.cumsum)(x.double(), 0)
-        torch.cuda.synchronize()
         # the plain version's combines in the kernel's order
-        assert (got - want).abs().max().item() <= (1e-7 if op == "prod"
-                                                   else 1e-5)
+        if variant == "flat":
+            assert torch.equal(got, want)
+        else:
+            assert (got - want).abs().max().item() <= (
+                1e-7 if op == "prod" else 1e-5)
         assert (got.double() - ref).abs().max().item() <= (
             1e-5 if op == "prod" else 1e-3)
-    for reps in (1, 64):
-        got = scan_probe.scan_rounds(x, variant, reps)
-        want = scan_probe._rounds_plain(x, variant)
-        torch.cuda.synchronize()
-        assert (got - want).abs().max().item() <= 1e-6
-    assert kernel.launches == before + 4
+    want = scan_probe._rounds_plain(x, variant)
+    # pass counts below, at and not dividing the kernel's pass slices
+    for reps in (1, 7, 64, 1000, 1024):
+        got = launched_once(lambda: scan_probe.scan_rounds(x, variant, reps))
+        if variant == "flat":
+            assert torch.equal(got, want), reps
+        else:
+            assert (got - want).abs().max().item() <= 1e-6, reps

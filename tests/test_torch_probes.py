@@ -157,11 +157,14 @@ def test_scan_matches_jax_and_numpy(sv, variant, op):
     x = scan_probe.probe_input("cpu").numpy()
     want = _interpret(_scan_kernel(sv, variant, op), x)
     got = scan_probe.scan(torch.from_numpy(x), op, variant).numpy()
-    # the plain version combines in the kernel's order, which differs from
-    # the TPU scan's association in the last step (flat) or inside the
-    # groups (grouped): a few ulps of the running sum (up to 48 here)
     bar = 1e-6 if op == "prod" else 1e-5
-    assert np.abs(got - want).max() <= bar
+    if variant == "flat":
+        # the flat kernel combines in scan_flat's order
+        assert np.array_equal(got, want)
+    else:
+        # the grouped kernel scans each group in sequence, scan_grouped in
+        # log steps: a few ulps of the running sum (up to 48 here)
+        assert np.abs(got - want).max() <= bar
     ref = np.cumprod(x.astype(np.float64), 0) if op == "prod" else \
         np.cumsum(x.astype(np.float64), 0)
     assert np.abs(got - ref).max() <= bar
@@ -172,9 +175,25 @@ def test_scan_rounds_match_jax(sv, variant):
     x = scan_probe.probe_input("cpu").numpy()
     want = _interpret(functools.partial(sv.kernel, variant), x)
     got = scan_probe.scan_rounds(torch.from_numpy(x), variant).numpy()
-    assert np.abs(got - want).max() <= 1e-6
+    if variant == "flat":
+        assert np.array_equal(got, want)
+    else:
+        assert np.abs(got - want).max() <= 1e-6
     # the rounds move each element by at most 64e-6 of x
     assert np.abs(got - x).max() <= 1e-4
+
+
+@pytest.mark.parametrize("variant", ["flat", "grouped"])
+@pytest.mark.parametrize("op", ["prod", "sum"])
+def test_scan_plain_ragged_columns(variant, op):
+    # 33 columns: a warp and one more on the card
+    x = scan_probe.probe_input("cpu", 33)
+    got = scan_probe.scan(x, op, variant).double()
+    ref = (torch.cumprod if op == "prod" else torch.cumsum)(x.double(), 0)
+    assert got.shape == (64, 33)
+    assert (got - ref).abs().max().item() <= (1e-6 if op == "prod" else 1e-5)
+    assert torch.equal(scan_probe.scan(x[:, :32].contiguous(), op, variant),
+                       scan_probe.scan(x, op, variant)[:, :32])
 
 
 def test_scan_check_and_wrappers():
