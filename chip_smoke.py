@@ -13,7 +13,9 @@ LABEL_AGREEMENT_BAR comes from. Phases (any failure stops the run):
 0. the card's name and power limit, as nvidia-smi reports them;
 1. build every kernel from ``gsplat_tpu_torch/csrc`` (one nvcc per source,
    all at once) and print build seconds and ptxas' registers, shared memory
-   and spills (P2's kernels must show no stack frame and no spill);
+   and spills (P2's kernels must show no stack frame and no spill); then
+   the native PLY codec from ``native/gsplat_native.cpp`` (``io/native.py``,
+   which phase 3's and the CLIs' PLY reads take);
 P. the probes: ``python -m gsplat_tpu_torch.utils.roofline``'s path (the
    card's f32 FMA and expf rates from kernels P1, and the bench frame's
    SOL), then ``utils.scan_probe``'s check and bench (kernels P2); both P1
@@ -45,7 +47,8 @@ P. the probes: ``python -m gsplat_tpu_torch.utils.roofline``'s path (the
    the build, each frame's tile lengths (max, p99, median) beside its
    checks;
 3. the serving path at real size: a 2M-gaussian scene written to PLY, loaded
-   back through ``scene_from_ply`` and rendered with labels from 8 orbit
+   back through ``scene_from_ply`` (native codec and numpy reader, each
+   timed and equal to the scene) and rendered with labels from 8 orbit
    views at 800x608 through ``render``; outputs finite and covered, nothing
    dropped, B4 and B1 launched once per frame; then B4, B1, B2 and B5
    against their plain versions on one of those frames, B1 at eps 0 equal
@@ -79,6 +82,23 @@ L. the labeling path at real size, through ``gsplat_tpu_torch.cli.label``:
    torch op of their plain version timed alone, and the kernel held
    against it bit for bit on the training state, whose dead and
    off-screen gaussians have no slot);
+T. the training CLI at real size: 16 orbit views of the 2M scene rendered
+   at 1600x1216 and written as PNG, an init PLY of the scene moved by
+   seeded noise, ``gsplat_tpu_torch.cli.train`` for 120 steps at 800x608
+   (``--scale 0.5``: the Pillow-exact resize) with densify at 40 and 80, an
+   opacity reset at 60 and checkpoints at 50 and 100, then the same command
+   again, which resumes at step 101; B4, B1, B2, B3 and the gathers launched
+   once a step, the loss falling (each view's second visit against its
+   first, before any densify or reset), the resumed run's last loss within
+   1e-3 relative, the same alive count in both PLYs; each run's time split into
+   target load, init PLY read (native codec), steps, densify, checkpoint
+   save and load and the PLY write;
+K. clustering: ``cli.kmeans`` over the 2M scene's PLY at k = 10 (the
+   distance and update ms per iteration) and ``cli.region_growing`` over
+   its first 100k gaussians at the reference's defaults (kNN, PCA and host
+   BFS timed apart), both PLYs labeling every gaussian; the card against
+   the CPU at 200k (k-means labels on >= 99.99%) and 5k with normals_k 200
+   (neighbour sets equal but at ties, the same regions);
 5. times on the card (CUDA events, median of 10 after warm-up) of
    projection, B4, the sort, B1, B2, B3, the boundary gathers, B5,
    ``torch.cumsum`` and the whole render at both frames, B4, B1, B3 and the
@@ -94,26 +114,33 @@ The second-to-last line of stdout is the kernel table as JSON; the last is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
 import statistics
-import struct
 import subprocess
 import sys
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from gsplat_tpu_torch import _kernels
+from gsplat_tpu_torch.cli import kmeans as kmeans_cli
 from gsplat_tpu_torch.cli import label as label_cli
+from gsplat_tpu_torch.cli import region_growing as rg_cli
 from gsplat_tpu_torch.cli import render as render_cli
+from gsplat_tpu_torch.cli import train as train_cli
+from gsplat_tpu_torch.cluster import kmeans as km
+from gsplat_tpu_torch.cluster import region_growing as rg
 from gsplat_tpu_torch.config import DEFAULT, UNLABELED
 from gsplat_tpu_torch.interact.edit import EditState, apply_edits
+from gsplat_tpu_torch.io import native, png
+from gsplat_tpu_torch.io import ply as ply_mod
 from gsplat_tpu_torch.io.cameras import (look_at_camera, orbit_cameras,
                                          save_cameras)
 from gsplat_tpu_torch.io.ply import (load_scene, read_ply, scene_from_ply,
@@ -131,7 +158,7 @@ from gsplat_tpu_torch.render.api import (_render_impl, _segment_sums_plain,
 from gsplat_tpu_torch.render.projection import (CameraParams, project,
                                                 tile_grid)
 from gsplat_tpu_torch.scene import color_to_dc, dc_color, scene_from_numpy
-from gsplat_tpu_torch.utils import roofline, scan_probe
+from gsplat_tpu_torch.utils import checkpoint, roofline, scan_probe
 from gsplat_tpu_torch.utils.blend_probe import segment_sum_ops
 from gsplat_tpu_torch.utils.profiling import graph_ms
 from gsplat_tpu_torch.utils.roofline import B4_OPS_PER_SLOT, HBM_BYTES_PER_S
@@ -178,6 +205,37 @@ VISIBILITY_THRESHOLD = 0.05
 # rehearsals at reduced size, ``--rehearse``: 0.605 at --reduce 100 over 64
 # views, 0.638 at --reduce 16 over 32 views (PERF.md).
 LABEL_AGREEMENT_BAR = 0.5
+
+# Phase T, the training CLI. 16 orbit views rendered at 1600x1216 and
+# trained at 800x608 (--scale 0.5, through the Pillow-exact resize); 120
+# steps with densify at 40 and 80, an opacity reset at 60, checkpoints at 50
+# and 100, then the same command again, which resumes at step 101. The init
+# PLY is the 2M scene with its DC colours and opacity logits moved by seeded
+# noise and, as phase 4 does, its means moved by 0.002 sigma. lr is phase
+# 4's, scaled to these gaussians' size for the same reason: Adam's first
+# update moves every visible mean by about lr. The reset at 60 sets every
+# alive opacity to 0.01, and at this lr an opacity logit moves 3.5e-4 a
+# step, so the loss after it stays above step 0's (on an H100: 0.076 at
+# step 0, 0.480 at step 119); progress is read where nothing intervenes:
+# each view's loss at its second visit (steps 16-31) against its first
+# (steps 0-15).
+TRAIN_CLI_VIEWS = 16
+TRAIN_CLI_SIZE = (1600, 1216)
+TRAIN_CLI_ITERS = 120
+TRAIN_CLI_RESUME = 101
+TRAIN_CLI_KERNELS = ("enum_keys", "blend_tiles_fwd", "blend_tiles_bwd",
+                     "cumsum_rows", "segment_sums")
+
+# Phase K, clustering: k-means over the 2M scene at the reference's k = 10;
+# region growing over its first 100k gaussians at the reference's
+# normals_k = 2000 (its N^2 distances at 2M would stream ~16 TB and its
+# [2M, 2000] neighbours take 16 GB; its BFS is sequential host Python).
+# Card against the CPU at reduced sizes: k-means at 200k, region growing at
+# 5k with normals_k = 200.
+KMEANS_K = 10
+RG_GAUSSIANS = 100_000
+KMEANS_CPU_GAUSSIANS = 200_000
+RG_CPU_GAUSSIANS, RG_CPU_NORMALS_K = 5_000, 200
 
 
 def log(obj) -> None:
@@ -1234,35 +1292,6 @@ def probe_phase(device, card) -> dict:
     return peaks, rows
 
 
-def decode_png(path: Path) -> np.ndarray:
-    """[H, W, 3] uint8 pixels of an 8-bit RGB PNG whose rows all carry
-    filter type 0 (what ``io/png.py`` writes), read with zlib alone."""
-    data = path.read_bytes()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path} is not a PNG")
-    off, idat, size = 8, b"", None
-    while off < len(data):
-        n, = struct.unpack(">I", data[off:off + 4])
-        kind, body = data[off + 4:off + 8], data[off + 8:off + 8 + n]
-        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(
-                ">I", data[off + 8 + n:off + 12 + n])[0]:
-            raise AssertionError(f"{path}: bad CRC in {kind!r}")
-        if kind == b"IHDR":
-            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
-            if (depth, ctype) != (8, 2):
-                raise AssertionError(f"{path} is not 8-bit RGB")
-            size = (h, w)
-        elif kind == b"IDAT":
-            idat += body
-        off += 12 + n
-    h, w = size
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
-        h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise AssertionError(f"{path}: a row filter other than 0")
-    return rows[:, 1:].reshape(h, w, 3)
-
-
 RENDER_SESSION = (EditState().toggle_visibility(3)
                   .displace(1, (0.05, 0.0, 0.0))
                   .set_color(2, (0.1, 0.2, 0.9)))
@@ -1300,8 +1329,9 @@ def render_cli_phase(scene, ply_path: Path, device, card) -> dict:
             rgb = (np.clip(want["image"].cpu().numpy(), 0.0, 1.0)
                    * 255).astype(np.uint8)
             stem = out_dir / f"{cam.img_name}_{cam.id:04d}"
-            png_ok = np.array_equal(decode_png(stem.with_suffix(".png")), rgb)
-            vis = decode_png(Path(f"{stem}_labels.png"))
+            png_ok = np.array_equal(
+                png.decode_png(stem.with_suffix(".png")), rgb)
+            vis = png.decode_png(f"{stem}_labels.png")
             lm = np.load(f"{stem}_labels.npy")
             checked.append({
                 "view": cam.id, "png_equal": png_ok,
@@ -1381,6 +1411,356 @@ def check_dense(device) -> None:
         raise AssertionError(f"dense render differs from tiled: {res}")
 
 
+class CallTimes:
+    """Wall seconds of each call of named module functions while active,
+    with the card synchronised before and after each call, so the CLI
+    phases split their time without the CLIs knowing."""
+
+    def __init__(self, targets):
+        self.targets = targets          # {label: (module, attribute name)}
+        self.seconds = {label: [] for label in targets}
+        self._saved = []
+
+    def _wrap(self, label, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[label].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def __enter__(self):
+        for label, (mod, name) in self.targets.items():
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, self._wrap(label, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved.clear()
+
+
+def run_cli(main, args) -> tuple:
+    """(return code, stdout lines, wall seconds) of a CLI run in process;
+    the lines are echoed."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    return rc, lines, wall
+
+
+def logged_losses(lines) -> dict:
+    """{step: loss} of the train CLI's log lines."""
+    out = {}
+    for line in lines:
+        m = re.fullmatch(r"step (\d+): loss ([0-9.eE+-]+)", line)
+        if m:
+            out[int(m.group(1))] = float(m.group(2))
+    return out
+
+
+def write_train_inputs(scene, work: Path, device) -> None:
+    """Phase T's inputs in ``work``: ``cameras.json`` of 16 orbit views at
+    1600x1216, each view rendered by the port and written as PNG, and
+    ``init.ply``, the scene moved by seeded noise."""
+    cams = orbit_cameras(TRAIN_CLI_VIEWS, 3.0, width=TRAIN_CLI_SIZE[0],
+                         img_height=TRAIN_CLI_SIZE[1])
+    save_cameras(str(work / "cameras.json"), cams)
+    (work / "targets").mkdir()
+    for cam in cams:
+        with torch.no_grad():
+            img = render(scene, cam, CFG, device=device)["image"]
+        rgb = (np.clip(img.cpu().numpy(), 0.0, 1.0) * 255).astype(np.uint8)
+        (work / "targets" / f"{cam.img_name}.png").write_bytes(
+            png.encode_png(rgb, level=1))
+    s = {k: a.copy() for k, a in scene.to_numpy().items()}
+    rng = np.random.default_rng(1)
+    n = s["means"].shape[0]
+    s["means"] = s["means"] + 0.002 * rng.standard_normal((n, 3))
+    s["sh"][:, 0] += 0.05 * rng.standard_normal((n, 3))
+    s["opacities"] = s["opacities"] - 0.5 + 0.25 * rng.standard_normal(n)
+    scene_to_ply(str(work / "init.ply"), scene_from_numpy(**s, device="cpu"))
+
+
+def densify_candidates(params, stats, extent) -> dict:
+    """Split and clone candidates of a densify step at the default
+    threshold against its free slots: with more candidates than slots the
+    reference's fault (ROADMAP C) shrinks every split candidate."""
+    cfg = densify.DensifyConfig()
+    alive = params.opacities > densify.DEAD_LOGIT + 1.0
+    keep = alive & (torch.sigmoid(params.opacities) >= cfg.prune_opacity) & (
+        torch.exp(params.log_scales).amax(-1) <= cfg.prune_scale * extent)
+    g_avg = stats.grad_accum / stats.count.clamp_min(1.0)
+    hot = keep & (g_avg > cfg.grad_threshold)
+    big = torch.exp(params.log_scales).amax(-1) > cfg.percent_dense * extent
+    return {"candidates": int(hot.sum()), "split_candidates": int(
+        (hot & big).sum()), "free_slots": int((~keep).sum())}
+
+
+def train_cli_phase(scene, device, card) -> dict:
+    """Phase T: ``gsplat_tpu_torch.cli.train`` twice on the same checkpoint
+    directory (the second run resumes at step 101); B4, B1, B2, B3 and the
+    gathers launched once per step of run 1, the loss falling (the views'
+    second visits against their first), the resumed run's last logged loss
+    within 1e-3 relative of run 1's, both PLYs with the same alive count
+    within 0.1%. Returns run 1's launch counts."""
+    work = REPO / "build" / "chip_smoke" / "train_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        write_train_inputs(scene, work, device)
+        log({"phase": "train CLI inputs", "views": TRAIN_CLI_VIEWS,
+             "size": TRAIN_CLI_SIZE, "seconds": time.perf_counter() - t0,
+             "target_bytes": sum(f.stat().st_size for f in
+                                 (work / "targets").iterdir()),
+             "init_ply_bytes": (work / "init.ply").stat().st_size})
+        base = ["--camera_file", str(work / "cameras.json"), "--image_dir",
+                str(work / "targets"), "--init_ply", str(work / "init.ply"),
+                "--scale", "0.5", "--iters", str(TRAIN_CLI_ITERS),
+                "--loss", "dssim_l1", "--lr", str(TRAIN_LR),
+                "--lr_final", str(TRAIN_LR / 20), "--densify_every", "40",
+                "--densify_until", "100", "--capacity_factor", "1.25",
+                "--opacity_reset_every", "60", "--checkpoint_dir",
+                str(work / "ck"), "--checkpoint_every", "50",
+                "--log_every", "20"]
+        runs = []
+        for out in ("fit.ply", "fit2.ply"):
+            steps_ms, step_losses, candidates = [], [], []
+
+            def make_step(*args, _make=trainer.make_adaptive_train_step,
+                          **kwargs):
+                step = _make(*args, **kwargs)
+
+                def timed(*a):
+                    ms, res = cuda_ms_once(lambda: step(*a))
+                    steps_ms.append(ms)
+                    step_losses.append(float(res[2]))
+                    return res
+                return timed
+
+            def densify_and_prune(params, labels, stats, *args,
+                                  _densify=densify.densify_and_prune):
+                candidates.append(densify_candidates(params, stats,
+                                                     args[1]))
+                return _densify(params, labels, stats, *args)
+
+            timers = CallTimes({
+                "decode": (png, "decode_png"), "resize": (png, "resize_rgb"),
+                "init PLY read": (ply_mod, "scene_from_ply"),
+                "densify": (densify, "densify_and_prune"),
+                "checkpoint save": (checkpoint, "save_pytree"),
+                "checkpoint load": (checkpoint, "restore_pytree"),
+                "PLY write": (ply_mod, "scene_to_ply")})
+            orig = (trainer.make_adaptive_train_step,
+                    densify.densify_and_prune)
+            trainer.make_adaptive_train_step = make_step
+            densify.densify_and_prune = densify_and_prune
+            reset_launches()
+            try:
+                with timers:
+                    rc, lines, wall = run_cli(
+                        train_cli.main, base + ["--out", str(work / out)])
+            finally:
+                (trainer.make_adaptive_train_step,
+                 densify.densify_and_prune) = orig
+            launches = read_launches()
+            sec = {k: sum(v) for k, v in timers.seconds.items()}
+            losses = logged_losses(lines)
+            run = {"out": out, "rc": rc, "wall_s": wall,
+                   "steps": len(steps_ms), "losses": losses,
+                   "step_losses": step_losses,
+                   "ms_per_step_median": statistics.median(steps_ms),
+                   "ms_per_step_min_max": [min(steps_ms), max(steps_ms)],
+                   "steps_s": sum(steps_ms) / 1e3,
+                   "target_load_s": sec["decode"] + sec["resize"],
+                   "seconds": sec, "calls": {
+                       k: len(v) for k, v in timers.seconds.items()},
+                   "densify_alive": [l for l in lines if "densify" in l],
+                   "densify_candidates": candidates,
+                   "resumed": [l for l in lines if l.startswith("resumed")],
+                   "launches": launches,
+                   "checkpoint_bytes": (work / "ck" / "state").stat().st_size,
+                   "card": card}
+            run["host_s_other"] = wall - sum(sec.values()) - run["steps_s"]
+            log({"phase": "train CLI", **run})
+            runs.append(run)
+            if rc != 0:
+                raise AssertionError(f"train CLI returned {rc}")
+        r1, r2 = runs
+        fits = [scene_from_ply(str(work / r["out"]), device=device)
+                for r in runs]
+        n_alive = [f.num_gaussians for f in fits]
+        last = TRAIN_CLI_ITERS - 1
+        first = r1["step_losses"]
+        v = TRAIN_CLI_VIEWS
+        resumed = r2["step_losses"]
+        res = {
+            "launches_per_step": {k: r1["launches"][k] / TRAIN_CLI_ITERS
+                                  for k in TRAIN_CLI_KERNELS},
+            "second_visit_over_first": sum(first[v:2 * v])
+            / sum(first[:v]),
+            "views_falling": sum(b < a for a, b in zip(first[:v],
+                                                       first[v:2 * v])),
+            "loss_step0": r1["losses"][0], "loss_last": r1["losses"][last],
+            "resumed_steps_max_rel_diff": max(
+                abs(a - b) / b for a, b in
+                zip(resumed, first[TRAIN_CLI_RESUME:])),
+            "resumed_line": r2["resumed"],
+            "loss_last_resumed": r2["losses"][last],
+            "resumed_rel_diff": abs(r2["losses"][last] - r1["losses"][last])
+            / r1["losses"][last],
+            "alive": n_alive,
+            "ply_bytes_equal": (work / "fit.ply").read_bytes()
+            == (work / "fit2.ply").read_bytes()}
+        log({"check": "train CLI", **res})
+        if any(r1["launches"][k] != TRAIN_CLI_ITERS
+               for k in TRAIN_CLI_KERNELS):
+            raise AssertionError(f"train CLI launches {r1['launches']} in "
+                                 f"{TRAIN_CLI_ITERS} steps")
+        if not res["second_visit_over_first"] < 1:
+            raise AssertionError(f"train CLI loss did not fall: {res}")
+        if r2["resumed"] != [f"resumed at step {TRAIN_CLI_RESUME}"]:
+            raise AssertionError(f"run 2 did not resume at "
+                                 f"{TRAIN_CLI_RESUME}: {r2['resumed']}")
+        if not res["resumed_rel_diff"] <= 1e-3:
+            raise AssertionError(f"resumed run's last loss differs: {res}")
+        if not abs(n_alive[0] - n_alive[1]) <= 1e-3 * n_alive[0]:
+            raise AssertionError(f"alive counts differ: {n_alive}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return r1["launches"]
+
+
+def neighbour_sets_agree(got, want, pts) -> dict:
+    """kNN rows of the card against the CPU's: rows whose neighbour sets
+    differ must hold the same distances, in float64, within 1e-6 relative
+    of the k-th (a tie at the boundary)."""
+    diff = (torch.sort(got.long(), 1).values
+            != torch.sort(want.long(), 1).values).any(1)
+    p = pts.double()
+    bad = 0
+    for i in torch.nonzero(diff).flatten().tolist():
+        d = lambda idx: ((p[idx] - p[i]) ** 2).sum(1).sort().values
+        a, b = d(got[i].long()), d(want[i].long())
+        bad += int(not torch.allclose(a, b, rtol=1e-6, atol=0))
+    return {"rows": got.shape[0], "rows_with_other_sets": int(diff.sum()),
+            "rows_not_at_a_tie": bad}
+
+
+def same_partition(a: np.ndarray, b: np.ndarray) -> bool:
+    """Whether two labelings split the points into the same regions. Equal
+    regions may be numbered apart: regions of one size are numbered in the
+    order of their seeds' residuals, which near-ties (1e-8 here, the
+    card's eigenvectors against the host's) can swap."""
+    pairs = len(set(zip(a.tolist(), b.tolist())))
+    return pairs == len(set(a.tolist())) == len(set(b.tolist()))
+
+
+def cluster_phase(scene, ply_path: Path, device, card) -> dict:
+    """Phase K: ``cli.kmeans`` over the 2M scene's PLY at k = 10 and
+    ``cli.region_growing`` over its first 100k gaussians at the reference's
+    defaults; both PLYs label every gaussian; k-means' distance and update
+    timed per iteration; the card against the CPU at reduced sizes."""
+    work = REPO / "build" / "chip_smoke" / "cluster"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+    try:
+        reset_launches()
+        rc, lines, wall = run_cli(kmeans_cli.main, [
+            "--file_path", str(ply_path), "--save_path",
+            str(work / "kmeans.ply"), "--k", str(KMEANS_K), "--binary"])
+        labels = read_ply(str(work / "kmeans.ply"))["vertex"]["label"]
+        sizes = np.bincount(labels, minlength=KMEANS_K).tolist()
+        feats = km.scene_features(scene)
+        res = km.kmeans(feats, KMEANS_K)
+        d_ms, _ = cuda_ms(lambda: km.assign(feats, res.centroids))
+        u_ms, _ = cuda_ms(lambda: km.update(feats, res.labels,
+                                            res.centroids))
+        out["kmeans"] = {
+            "gaussians": scene.num_gaussians, "k": KMEANS_K, "rc": rc,
+            "wall_s": wall, "iterations": res.iterations,
+            "shift": res.shift, "cluster_sizes": sizes,
+            "labels_equal_to_in_process_run": bool(np.array_equal(
+                labels, res.labels.cpu().numpy())),
+            "distance_ms_per_iteration": d_ms,
+            "update_ms_per_iteration": u_ms, "card": card}
+        log({"phase": "k-means CLI", **out["kmeans"]})
+        if not (rc == 0 and len(labels) == scene.num_gaussians
+                and labels.min() >= 0 and labels.max() < KMEANS_K
+                and out["kmeans"]["labels_equal_to_in_process_run"]):
+            raise AssertionError(f"k-means CLI is wrong: {out['kmeans']}")
+
+        sub = dataclasses.replace(scene, **{
+            f: getattr(scene, f)[:RG_GAUSSIANS] for f in
+            ("means", "log_scales", "quats", "opacities", "sh", "labels")})
+        scene_to_ply(str(work / "sub.ply"), sub)
+        timers = CallTimes({"knn_indices": (rg, "knn_indices"),
+                            "pca_normals": (rg, "pca_normals"),
+                            "grow_regions (host BFS)": (rg, "grow_regions")})
+        with timers:
+            rc, lines, wall = run_cli(rg_cli.main, [
+                "--file_path", str(work / "sub.ply"), "--save_path",
+                str(work / "regions.ply"), "--binary"])
+        labels = read_ply(str(work / "regions.ply"))["vertex"]["label"]
+        out["region_growing"] = {
+            "gaussians": sub.num_gaussians, "rc": rc, "wall_s": wall,
+            "seconds": {k: sum(v) for k, v in timers.seconds.items()},
+            "regions": int(labels.max()) + 1,
+            "largest": int(np.bincount(labels).max()), "card": card}
+        log({"phase": "region growing CLI", **out["region_growing"]})
+        if not (rc == 0 and len(labels) == sub.num_gaussians
+                and labels.min() >= 0):
+            raise AssertionError(f"region growing CLI is wrong: "
+                                 f"{out['region_growing']}")
+        out["launches"] = read_launches()
+
+        # the card against the CPU at reduced sizes
+        feats = feats[:KMEANS_CPU_GAUSSIANS]
+        card_run = km.kmeans(feats, KMEANS_K)
+        cpu_run = km.kmeans(feats.cpu(), KMEANS_K)
+        agree = float((card_run.labels.cpu() == cpu_run.labels)
+                      .float().mean())
+        pts = scene.means[:RG_CPU_GAUSSIANS]
+        geo = [rg.compute_geometry(p, normals_k=RG_CPU_NORMALS_K)
+               for p in (pts, pts.cpu())]
+        regions = [rg.grow_regions(g) for g in geo]
+        nb = neighbour_sets_agree(
+            rg.knn_indices(pts, RG_CPU_NORMALS_K).cpu(),
+            rg.knn_indices(pts.cpu(), RG_CPU_NORMALS_K), pts.cpu())
+        out["card_vs_cpu"] = {
+            "kmeans_gaussians": KMEANS_CPU_GAUSSIANS,
+            "kmeans_label_agreement": agree,
+            "kmeans_iterations": [card_run.iterations, cpu_run.iterations],
+            "rg_gaussians": RG_CPU_GAUSSIANS,
+            "rg_normals_k": RG_CPU_NORMALS_K, "knn": nb,
+            "normals_max_abs_err": float(
+                (geo[0].normals.cpu() - geo[1].normals).abs().max()),
+            "regions_equal": same_partition(*regions),
+            "labels_equal": bool(np.array_equal(*regions)),
+            "regions": int(regions[1].max()) + 1}
+        log({"check": "clustering card vs CPU", **out["card_vs_cpu"]})
+        if not (agree >= 0.9999 and nb["rows_not_at_a_tie"] == 0
+                and out["card_vs_cpu"]["regions_equal"]):
+            raise AssertionError(f"clustering on the card differs from the "
+                                 f"CPU: {out['card_vs_cpu']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def rehearse(views: int, reduce: int) -> int:
     """Phase L at reduced size on the CPU, where the kernel wrappers take
     their plain versions: the 2M scene with ``reduce`` times fewer
@@ -1437,6 +1817,10 @@ def main(argv=None) -> int:
     built = _kernels.build()
     log({"phase": "build", "wall_s": time.perf_counter() - t0,
          "per_source_s": {k: v["seconds"] for k, v in built.items()}})
+    t0 = time.perf_counter()
+    lib = native.build()
+    log({"phase": "build native codec", "library": lib.name,
+         "wall_s": time.perf_counter() - t0})
     for name, info in built.items():
         for line in info["ptxas"].splitlines():
             if "ptxas info" in line or "spill" in line:
@@ -1497,14 +1881,24 @@ def main(argv=None) -> int:
     ply_dir.mkdir(parents=True, exist_ok=True)
     ply_path = ply_dir / "scene_2m.ply"
     scene_to_ply(str(ply_path), made)
-    scene = scene_from_ply(str(ply_path), device=device)
+    # the PLY read through the native codec and through the numpy reader
+    # (wall seconds, the scene on the card in each)
+    reads = {}
+    for codec, native_read in (("native", True), ("numpy", False)):
+        t1 = time.perf_counter()
+        scene = scene_from_ply(str(ply_path), use_native=native_read,
+                               device=device)
+        torch.cuda.synchronize()
+        reads[f"read_{codec}_s"] = time.perf_counter() - t1
+        for f in ("means", "log_scales", "quats", "opacities", "sh",
+                  "labels"):
+            if not torch.equal(getattr(scene, f), getattr(made, f)):
+                raise AssertionError(f"PLY round trip ({codec}) changed {f}")
     ply_bytes = ply_path.stat().st_size
-    for f in ("means", "log_scales", "quats", "opacities", "sh", "labels"):
-        if not torch.equal(getattr(scene, f), getattr(made, f)):
-            raise AssertionError(f"PLY round trip changed {f}")
     del made
     log({"phase": "scene", "gaussians": scene.num_gaussians,
-         "ply_bytes": ply_bytes, "seconds": time.perf_counter() - t0})
+         "ply_bytes": ply_bytes, "seconds": time.perf_counter() - t0,
+         **reads, "card": card})
     cams = orbit_cameras(8, 3.0, width=WIDTH, img_height=HEIGHT)
 
     reset_launches()
@@ -1535,7 +1929,6 @@ def main(argv=None) -> int:
 
     # R. the offline render path: the render CLI over the PLY, .splat, dense
     cli_launches = render_cli_phase(scene, ply_path, device, card)
-    ply_path.unlink()
 
     big = Frame(scene, cams[0])
     err_b4 = max(err_b4, check_b4(big))
@@ -1560,6 +1953,17 @@ def main(argv=None) -> int:
     train_row, train_peak = time_train_step(state, labels, train_cams[0],
                                             targets[0], device, card)
     del state, labels, targets
+
+    # T. the training CLI: 120 steps at 2M, then a resumed run
+    t0 = time.perf_counter()
+    train_cli_launches = train_cli_phase(scene, device, card)
+    log({"phase": "T done", "wall_s": time.perf_counter() - t0})
+
+    # K. clustering: the k-means and region-growing CLIs
+    t0 = time.perf_counter()
+    cluster = cluster_phase(scene, ply_path, device, card)
+    ply_path.unlink()
+    log({"phase": "K done", "wall_s": time.perf_counter() - t0})
 
     # 5. times
     results = {}
@@ -1656,7 +2060,9 @@ def main(argv=None) -> int:
 
     row, b4, b3, fb, blends = results["2M view 0"]
     by_path = {k: {"render": launches[k], "train": train_launches[k],
-                   "label": label_launches[k], "render_cli": cli_launches[k]}
+                   "label": label_launches[k], "render_cli": cli_launches[k],
+                   "train_cli": train_cli_launches[k],
+                   "cluster": cluster["launches"][k]}
                for k in launches}
 
     def blend_row(k):

@@ -57,7 +57,7 @@ def main(argv=None) -> int:
             "--sharded: the sharded vote comes with the port's multi-GPU "
             "slice (parallel/mesh.py)")
 
-    from gsplat_tpu_torch.io import ply
+    from gsplat_tpu_torch.io import ply, png
     from gsplat_tpu_torch.io.cameras import load_cameras
     from gsplat_tpu_torch.label import adapters, vote
     from gsplat_tpu_torch.label.adapters import _nearest_resize
@@ -83,8 +83,8 @@ def main(argv=None) -> int:
                 print(f"warning: image not found, skipping: {img_path}",
                       file=sys.stderr)  # reference py:257-259
                 continue
-            from PIL import Image
-            img = np.asarray(Image.open(img_path).convert("RGB"))
+            # Image.open(p).convert("RGB")'s pixels, without PIL
+            img = png.decode_png(img_path)
         try:
             seg = backend(cam.img_name, img)
         except FileNotFoundError:

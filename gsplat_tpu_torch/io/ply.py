@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from gsplat_tpu_torch.config import NO_SELECTION
+from gsplat_tpu_torch.io import native
 from gsplat_tpu_torch.io.splat_format import read_splat
 from gsplat_tpu_torch.scene import DeviceLike, GaussianScene, scene_from_numpy
 
@@ -140,10 +141,17 @@ _REST_RE = re.compile(r"^f_rest_(\d+)$")
 def scene_from_ply(path_or_bytes: Union[str, bytes], use_native: bool = True,
                    device: DeviceLike = None) -> GaussianScene:
     """Parse a gaussian PLY (schema of gaussians_selection.js:491-579) onto
-    ``device``. ``use_native`` is accepted for the JAX signature; the native
-    codec is not part of the port yet, so the numpy reader runs, as the JAX
-    version does when its native library is missing."""
-    del use_native
+    ``device``.
+
+    With ``use_native`` the multithreaded C++ codec (``io/native.py``)
+    parses binary files; what it declines (ascii, list properties) goes to
+    the generic numpy reader, as in the JAX package. Unlike the JAX version,
+    a codec that fails to build or load raises instead of falling back;
+    ``use_native=False`` takes the numpy reader."""
+    if use_native:
+        scene = native.scene_from_ply_native(path_or_bytes, device=device)
+        if scene is not None:
+            return scene
     v = read_ply(path_or_bytes)["vertex"]
     names = set(v.dtype.names)
     n = len(v)

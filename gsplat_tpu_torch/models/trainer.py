@@ -24,7 +24,7 @@ from gsplat_tpu_torch.config import Config, DEFAULT
 from gsplat_tpu_torch.models import losses
 from gsplat_tpu_torch.render.api import _render_impl
 from gsplat_tpu_torch.render.projection import CameraParams
-from gsplat_tpu_torch.scene import GaussianScene
+from gsplat_tpu_torch.scene import DeviceLike, GaussianScene, resolve_device
 
 # Standard 3DGS-style per-parameter learning-rate scaling.
 LR_SCALES = dict(means=1.0, log_scales=0.05, quats=0.01, opacities=0.5,
@@ -128,6 +128,24 @@ def init_state(scene: GaussianScene, lr: float = 1e-2,
     params = SceneParams.from_scene(scene)
     opt = scaled_adam(lr, lr_final=lr_final, decay_steps=decay_steps)
     return TrainState(params, opt.init(params), 0)
+
+
+def state_from_numpy(params, m, v, step: int,
+                     device: DeviceLike = None) -> TrainState:
+    """The weights carry-across of a training state: ``params``, ``m`` and
+    ``v`` are the five fields' arrays, in ``SceneParams`` order, of a JAX
+    ``TrainState``'s parameters and Adam moments, ``step`` its step; the
+    port's ``TrainState`` with the same bits, whose Adam count is ``step``
+    (one update a step, as in the JAX package)."""
+    device = resolve_device(device)
+
+    def tensors(arrays) -> SceneParams:
+        return SceneParams(*(torch.from_numpy(np.array(a, np.float32))
+                             .to(device) for a in arrays))
+
+    step = int(step)
+    return TrainState(tensors(params), AdamState(step, tensors(m),
+                                                 tensors(v)), step)
 
 
 def zero_adam_rows(opt_state: AdamState, mask: torch.Tensor,

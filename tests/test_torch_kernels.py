@@ -1,7 +1,10 @@
 """The port's CUDA kernels (B4 ``enum_keys``, B1 ``blend_tiles_fwd``, B2
 ``blend_tiles_bwd``, B3 ``cumsum_rows``, the fold's boundary gathers
 ``segment_sums``, B5 ``blend_tiles_vis``), their wrappers, the skip test of B5 and B2 (``csrc/blend_cull.cuh``) through its
-plain mirror, and the vote on the card against the CPU.
+plain mirror, and the vote on the card against the CPU; the host code the
+card's machine runs without Pillow (the PNG reader and resize give the bits
+whose digests ``test_torch_train_cli.py`` takes from Pillow), and k-means
+and the batched ``torch.linalg.eigh`` of region growing on the card.
 
 This file imports neither jax nor ``gsplat_tpu``, so on a machine with a card
 and only PyTorch it runs without the JAX harness of ``conftest.py``:
@@ -12,6 +15,10 @@ On the CPU the wrappers take their plain PyTorch versions and the card cases
 skip; on the card each kernel is held against its plain version.
 """
 
+import hashlib
+import struct
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -19,8 +26,9 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from gsplat_tpu_torch import _kernels
+from gsplat_tpu_torch.cluster import kmeans, region_growing
 from gsplat_tpu_torch.config import UNLABELED
-from gsplat_tpu_torch.io import cameras, synthetic
+from gsplat_tpu_torch.io import cameras, png, synthetic
 from gsplat_tpu_torch.label import vote
 from gsplat_tpu_torch.models import trainer
 from gsplat_tpu_torch.render import api, blend, projection, tiles
@@ -973,3 +981,111 @@ def test_scan_kernels_match_plain(card, variant, cols):
             assert torch.equal(got, want), reps
         else:
             assert (got - want).abs().max().item() <= 1e-6, reps
+
+
+# ---------------------------------------------------------------------------
+# host code of the training CLI and clustering on the card's machine
+# ---------------------------------------------------------------------------
+
+
+def smooth_image(h, w, seed=0):
+    """A gradient with noise: the filters a PNG writer picks for it vary by
+    row."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([(3 * x + 2 * y) % 256, (x * y) % 256,
+                    rng.integers(0, 256, size=(h, w))], -1)
+    return img.astype(np.uint8)
+
+
+def filtered_png(img: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG whose rows cycle through the five filter types."""
+    h, w, _ = img.shape
+    px = img.astype(np.int64)
+    rows = []
+    for r in range(h):
+        ft = r % 5
+        cur = px[r].reshape(-1)
+        up = px[r - 1].reshape(-1) if r else np.zeros_like(cur)
+        left = np.concatenate([np.zeros(3, np.int64), cur[:-3]])
+        ul = np.concatenate([np.zeros(3, np.int64), up[:-3]])
+        pred = [np.zeros_like(cur), left, up, (left + up) >> 1,
+                png._paeth(left, up, ul)][ft]
+        rows.append(bytes([ft]) + ((cur - pred) & 0xFF).astype(
+            np.uint8).tobytes())
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (png.SIGNATURE + png._chunk(b"IHDR", header)
+            + png._chunk(b"IDAT", zlib.compress(b"".join(rows)))
+            + png._chunk(b"IEND", b""))
+
+
+def png_cases():
+    """{name: (PNG bytes, resize (width, height) or None)}."""
+    big = np.random.default_rng(7).integers(0, 256, size=(1216, 1600, 3),
+                                            dtype=np.uint8)
+    return {
+        "filters 31x23": (filtered_png(smooth_image(23, 31, seed=4)), None),
+        "filters 97x61 to 45x130": (filtered_png(smooth_image(61, 97)),
+                                    (45, 130)),
+        "1600x1216 to 800x608": (png.encode_png(big), (800, 608)),
+    }
+
+
+# sha256 of the pixels of each case; test_torch_train_cli.py holds them
+# equal to Pillow's (12.1.0)
+PNG_DIGESTS = {
+    "filters 31x23":
+        "cc0c2399eb4407c0d7ef3d845ce9b69ed3dff9bf52a74c7244a48431695e316b",
+    "filters 97x61 to 45x130":
+        "a48535512163ed967af22ab148a72fa304c6e07bde2806a9e1e30490c882fb6f",
+    "1600x1216 to 800x608":
+        "abd81bd0db334c210cc658435dc531b471a7a0d59ff95fda5d3d13335f5e725d",
+}
+
+
+@pytest.mark.gpu
+def test_png_and_resize_bits_on_the_cards_machine(card):
+    for name, (data, size) in png_cases().items():
+        got = png.decode_png(data)
+        if size is not None:
+            got = png.resize_rgb(got, *size)
+        assert hashlib.sha256(got.tobytes()).hexdigest() == PNG_DIGESTS[name]
+
+
+@pytest.mark.gpu
+def test_kmeans_on_card_matches_cpu(card):
+    scene = synthetic.random_scene(20000, seed=4, device="cpu")
+    feats = kmeans.scene_features(scene)
+    want = kmeans.kmeans(feats, 10, seed=1)
+    got = kmeans.kmeans(feats.to(card), 10, seed=1)
+    assert got.labels.device.type == "cuda"
+    assert (got.labels.cpu() == want.labels).float().mean() >= 0.9999
+    assert got.iterations == want.iterations
+    # a point that changes cluster moves two centroids by ~1/2000 of its
+    # distance; none moved here, so only the sums' order differs
+    torch.testing.assert_close(got.centroids.cpu(), want.centroids,
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_batched_eigh_and_normals_on_card_match_cpu(card):
+    rng = np.random.default_rng(9)
+    q, _ = np.linalg.qr(rng.normal(size=(512, 3, 3)))
+    w = np.sort(rng.uniform(0.1, 3.0, size=(512, 3)), axis=1)
+    w[:, 1] += 0.5
+    w[:, 2] += 1.0          # eigenvalues at least 0.5 apart
+    cov = torch.from_numpy((q * w[:, None, :]) @ q.transpose(0, 2, 1)).float()
+    w_cpu, v_cpu = torch.linalg.eigh(cov)
+    w_card, v_card = torch.linalg.eigh(cov.to(card))
+    torch.testing.assert_close(w_card.cpu(), w_cpu, rtol=1e-5, atol=1e-5)
+    # eigenvectors up to sign
+    dots = (v_card.cpu() * v_cpu).sum(1).abs()
+    assert float((dots - 1).abs().max()) <= 1e-4
+    pts = synthetic.sphere_scene(3000, radius=1.0, seed=9, scale=0.01,
+                                 device="cpu").means
+    nbrs = region_growing.knn_indices(pts, 30)
+    n_cpu, r_cpu = region_growing.pca_normals(pts, nbrs, 30)
+    n_card, r_card = region_growing.pca_normals(pts.to(card), nbrs.to(card),
+                                                30)
+    assert float((n_card.cpu() - n_cpu).abs().max()) <= 1e-4
+    torch.testing.assert_close(r_card.cpu(), r_cpu, rtol=0, atol=1e-5)
