@@ -99,6 +99,27 @@ K. clustering: ``cli.kmeans`` over the 2M scene's PLY at k = 10 (the
    BFS timed apart), both PLYs labeling every gaussian; the card against
    the CPU at 200k (k-means labels on >= 99.99%) and 5k with normals_k 200
    (neighbour sets equal but at ties, the same regions);
+V. the live viewer at real size: V1 a ``ViewerServer`` of phase 3's 2M
+   scene (800x608, the 8 orbit cameras, a session file) in a thread on a
+   free port, driven over HTTP by a user's session: the page, /cameras,
+   /campose, 60 orbit frames, 10 with labels, the 8 presets, a /select at
+   the centre, set_color, hide and four displacements of the selected
+   label and the three resets (a frame after each), then POST /load of 5
+   cameras, of a 20k-gaussian PLY and of the 2M PLY again (timed); every
+   status and content type, every PNG decoding to 608x800x3, frames over
+   HTTP equal to ``frame_pixels`` bit for bit, the /select payload equal
+   to ``hit_test``'s label, name and count, the highlight raising red and
+   sel=0 giving the first frame back, hide changing pixels, each reset
+   giving back the frame before its edits, the session file equal to the
+   edit state, the frame after the reload equal to the first, B4 and B1
+   launched once a /render and nothing else launched; client ms per
+   /render (p50, p95, max), the page's fps, PNG bytes, peak memory and a
+   server-side breakdown (edits, render, assembly with the copy, the PNG
+   encode at zlib levels 0, 1 and 6). V2 ``cli.view`` as a subprocess on
+   the 2M PLY: seconds to its printed port, 10 frames and a /select equal
+   to V1's. V3 the viewer on the card against the CPU on
+   ``tests/test_viewer.py``'s fixture scene (>= 99.9% of uint8 values
+   equal, none more than 2 apart, /select payloads equal);
 5. times on the card (CUDA events, median of 10 after warm-up) of
    projection, B4, the sort, B1, B2, B3, the boundary gathers, B5,
    ``torch.cumsum`` and the whole render at both frames, B4, B1, B3 and the
@@ -116,20 +137,26 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
+import http.client
 import io
 import json
+import queue
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from http.server import ThreadingHTTPServer
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from gsplat_tpu_torch import _kernels
+from gsplat_tpu_torch.assets.ade20k import label_name
 from gsplat_tpu_torch.cli import kmeans as kmeans_cli
 from gsplat_tpu_torch.cli import label as label_cli
 from gsplat_tpu_torch.cli import region_growing as rg_cli
@@ -137,8 +164,10 @@ from gsplat_tpu_torch.cli import render as render_cli
 from gsplat_tpu_torch.cli import train as train_cli
 from gsplat_tpu_torch.cluster import kmeans as km
 from gsplat_tpu_torch.cluster import region_growing as rg
-from gsplat_tpu_torch.config import DEFAULT, UNLABELED
-from gsplat_tpu_torch.interact.edit import EditState, apply_edits
+from gsplat_tpu_torch.config import DEFAULT, NO_SELECTION, UNLABELED
+from gsplat_tpu_torch.interact.edit import EditState, apply_edits, hit_test
+from gsplat_tpu_torch.interact.viewer import (PNG_LEVEL, ViewerServer,
+                                              assemble_frame)
 from gsplat_tpu_torch.io import native, png
 from gsplat_tpu_torch.io import ply as ply_mod
 from gsplat_tpu_torch.io.cameras import (look_at_camera, orbit_cameras,
@@ -1761,6 +1790,501 @@ def cluster_phase(scene, ply_path: Path, device, card) -> dict:
     return out
 
 
+# Phase V, the live viewer. The scripted session is a user's: the page,
+# its camera list and a preset's pose, a drag of 60 frames (theta 0.01 a
+# frame, as the page turns a pixel of mouse motion), 10 frames with the
+# label overlay, the 8 presets, a click that selects a label, one edit of
+# each kind and the resets, and three drag-drop loads. V3 compares the card
+# with the CPU on tests/test_viewer.py's fixture scene.
+VIEW_POSE = (0.8, 0.3, 3.0)         # the page's initial theta, phi, r
+VIEW_ORBIT, VIEW_LABELS = 60, 10
+VIEW_CLI_FRAMES = 10
+VIEW_CLI_START_S = 300
+VIEW_LOAD_GAUSSIANS = 20_000
+VIEW_ENCODE_LEVELS = (0, 1, 6)
+VIEW_SMALL = dict(n=200, seed=3, size=(64, 48), cameras=4)
+
+
+def fetch(port: int, path: str, method: str = "GET", body=None) -> tuple:
+    """(status, content type, body, client wall ms) of one request on a
+    new connection, as the page's ``img.src`` and ``fetch`` make them."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.perf_counter()
+    try:
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        data = r.read()
+    finally:
+        conn.close()
+    return (r.status, r.getheader("Content-Type"), data,
+            (time.perf_counter() - t0) * 1e3)
+
+
+def fetch_ok(port: int, path: str, ctype: str, method: str = "GET",
+             body=None) -> tuple:
+    """``fetch`` that fails unless the answer is 200 with ``ctype``."""
+    status, got, data, ms = fetch(port, path, method, body)
+    if (status, got) != (200, ctype):
+        raise AssertionError(f"{method} {path} answered {status} {got}: "
+                             f"{data[:200]!r}")
+    return data, ms
+
+
+def view_query(theta, phi, r, labels=False, sel=False, cam=-1) -> str:
+    """The page's /render query string (``qs()`` in the page)."""
+    return (f"theta={theta!r}&phi={phi!r}&r={r!r}&px=0&py=0&pz=0&cam={cam}"
+            f"&labels={int(labels)}&sel={int(sel)}")
+
+
+def uncounted(fn):
+    """``fn()`` with the launch counts as they were before it: the
+    in-process comparisons are not part of the session."""
+    saved = [w.launches for w in WRAPPERS]
+    out = fn()
+    torch.cuda.synchronize()
+    for w, n in zip(WRAPPERS, saved):
+        w.launches = n
+    return out
+
+
+def percentiles(ms) -> dict:
+    a = np.asarray(ms)
+    return {"n": len(ms), "p50": float(np.percentile(a, 50)),
+            "p95": float(np.percentile(a, 95)), "max": float(a.max())}
+
+
+class ViewerSession:
+    """Phase V1's client: every /render is decoded, checked for its shape
+    and kept with its wall time under a group name."""
+
+    def __init__(self, srv, port, size):
+        self.srv, self.port, self.size = srv, port, size
+        self.ms = {}
+        self.png_bytes = []
+        self.renders = 0
+
+    def frame(self, group, query) -> np.ndarray:
+        data, ms = fetch_ok(self.port, "/render?" + query, "image/png")
+        self.renders += 1
+        self.ms.setdefault(group, []).append(ms)
+        self.png_bytes.append(len(data))
+        pix = png.decode_png(data)
+        w, h = self.size
+        if pix.shape != (h, w, 3):
+            raise AssertionError(f"frame {query} has shape {pix.shape}")
+        return pix
+
+    def same_in_process(self, pix, theta, phi, r, labels=False, sel=False,
+                        cam=-1) -> None:
+        want = uncounted(lambda: self.srv.frame_pixels(
+            theta, phi, r, labels, cam_idx=cam, selection=sel))
+        if not np.array_equal(pix, want):
+            raise AssertionError(f"HTTP frame at {(theta, phi, r)} differs "
+                                 f"from frame_pixels")
+
+    def edit(self, query) -> None:
+        before = read_launches()
+        fetch_ok(self.port, "/edit?" + query, "application/json")
+        if read_launches() != before:
+            raise AssertionError("an /edit launched a kernel")
+        with open(self.srv.session_path) as f:
+            if f.read() != self.srv.edits.to_json():
+                raise AssertionError(f"session file after {query} is not "
+                                     f"the edit state")
+
+
+def serve_in_thread(srv):
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv.make_handler())
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd
+
+
+def viewer_session(scene, ply_path: Path, work: Path, device,
+                   size=(WIDTH, HEIGHT)) -> dict:
+    """Phase V1: the scripted session against a ViewerServer of the 2M
+    scene served from a thread; returns its numbers, the launch counts and
+    the frames V2 compares with."""
+    w, h = size
+    cams = orbit_cameras(8, 3.0, width=w, img_height=h)
+    srv = ViewerServer(scene, width=w, height=h, cameras=cams,
+                       session_path=str(work / "session.json"),
+                       device=device)
+    srv.prewarm()
+    httpd = serve_in_thread(srv)
+    port = httpd.server_address[1]
+    s = ViewerSession(srv, port, size)
+    th0, ph0, r0 = VIEW_POSE
+    out = {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_launches()
+        page, _ = fetch_ok(port, "/", "text/html")
+        ncams = json.loads(fetch_ok(port, "/cameras", "application/json")[0])
+        pose = json.loads(fetch_ok(port, "/campose?cam=3",
+                                   "application/json")[0])
+        if ncams != {"count": 8} or pose != srv.campose(3) or (
+                b"gsplat-tpu viewer" not in page):
+            raise AssertionError(f"page, /cameras or /campose is wrong: "
+                                 f"{ncams}, {pose}")
+        if fetch(port, "/campose?cam=8")[0] != 404:
+            raise AssertionError("/campose of a missing camera is not 404")
+
+        orbit = [s.frame("orbit", view_query(th0 + 0.01 * i, ph0, r0))
+                 for i in range(VIEW_ORBIT)]
+        first = orbit[0]
+        s.same_in_process(first, th0, ph0, r0)
+        th1 = th0 + 0.01 * VIEW_ORBIT
+        labelled = [s.frame("labels", view_query(th1 + 0.01 * i, ph0, r0,
+                                                 labels=True))
+                    for i in range(VIEW_LABELS)]
+        s.same_in_process(labelled[-1], th1 + 0.01 * (VIEW_LABELS - 1), ph0,
+                          r0, labels=True)
+        for i in range(len(cams)):
+            pix = s.frame("presets", view_query(0, 0, r0, cam=i))
+        s.same_in_process(pix, 0, 0, r0, cam=len(cams) - 1)
+
+        # select at the frame's centre, as a click in selection mode
+        before = read_launches()
+        sel = json.loads(fetch_ok(port, "/select?x=0.5&y=0.5&" + view_query(
+            th0, ph0, r0, sel=True), "application/json")[0])
+        select_launches = {k: v - before[k]
+                           for k, v in read_launches().items()}
+        lab = uncounted(lambda: hit_test(
+            apply_edits(scene, EditState()), srv._camera(th0, ph0, r0),
+            0.5 * w, 0.5 * h, radius_px=CFG.interact.hit_radius_px))
+        want = {"label": lab, "name": label_name(lab),
+                "count": int((scene.labels == lab).sum())}
+        if lab == NO_SELECTION or sel != want or any(select_launches.values()):
+            raise AssertionError(f"/select answered {sel}, want {want}; "
+                                 f"launches {select_launches}")
+        selected = s.frame("edits", view_query(th0, ph0, r0, sel=True))
+        s.same_in_process(selected, th0, ph0, r0, sel=True)
+        red = int(selected[..., 0].sum(dtype=np.int64)
+                  - first[..., 0].sum(dtype=np.int64))
+        again = s.frame("edits", view_query(th0, ph0, r0))
+        if red <= 0 or not np.array_equal(again, first):
+            raise AssertionError(f"the highlight moved red by {red}, or sel=0 "
+                                 f"did not give the first frame back")
+
+        # one edit of each kind on the selected label, a frame after each;
+        # then the resets, each giving back the frame before its edits
+        after = {}
+        for name, query in (
+                ("set_color", f"action=set_color&label={lab}&r=0.1&g=0.9"
+                              f"&b=0.2"),
+                ("hide", f"action=hide&label={lab}"),
+                ("displace_h", f"action=displace&label={lab}&dx=-1&dy=0"
+                               f"&dz=0"),
+                ("displace_k", f"action=displace&label={lab}&dx=1&dy=0"
+                               f"&dz=0"),
+                ("displace_u", f"action=displace&label={lab}&dx=0&dy=-1"
+                               f"&dz=0"),
+                ("displace_j", f"action=displace&label={lab}&dx=0&dy=1"
+                               f"&dz=0")):
+            s.edit(query)
+            after[name] = s.frame("edits", view_query(th0, ph0, r0,
+                                                      sel=True))
+        s.same_in_process(after["displace_j"], th0, ph0, r0, sel=True)
+        if np.array_equal(after["hide"], after["set_color"]):
+            raise AssertionError("hide changed no pixel")
+        for reset, back_to in (("reset_disp", "hide"),
+                               ("reset_vis", "set_color"),
+                               ("reset_color", None)):
+            s.edit("action=" + reset)
+            pix = s.frame("edits", view_query(th0, ph0, r0, sel=True))
+            want = selected if back_to is None else after[back_to]
+            if not np.array_equal(pix, want):
+                raise AssertionError(f"{reset} did not give back the frame "
+                                     f"before its edits")
+
+        # drag-drop loads: cameras, a small scene, the 2M PLY again
+        cams5 = json.dumps([c.to_json() for c in orbit_cameras(
+            5, 2.5, width=w, img_height=h)]).encode()
+        res = json.loads(fetch_ok(port, "/load", "application/json", "POST",
+                                  cams5)[0])
+        if res != {"cameras": 5} or len(srv.cameras) != 5:
+            raise AssertionError(f"camera load answered {res}")
+        small = random_scene(VIEW_LOAD_GAUSSIANS, seed=11, extent=1.5,
+                             scale_range=(0.01, 0.04), num_labels=16,
+                             device="cpu")
+        small_ply = work / "small.ply"
+        scene_to_ply(str(small_ply), small)
+        res = json.loads(fetch_ok(port, "/load", "application/json", "POST",
+                                  small_ply.read_bytes())[0])
+        if res != {"gaussians": VIEW_LOAD_GAUSSIANS}:
+            raise AssertionError(f"small PLY load answered {res}")
+        s.frame("edits", view_query(th0, ph0, r0))
+        body = ply_path.read_bytes()
+        t0 = time.perf_counter()
+        res = json.loads(fetch_ok(port, "/load", "application/json", "POST",
+                                  body)[0])
+        reload_s = time.perf_counter() - t0
+        del body
+        if res != {"gaussians": scene.num_gaussians}:
+            raise AssertionError(f"2M PLY load answered {res}")
+        if not np.array_equal(s.frame("edits", view_query(th0, ph0, r0)),
+                              first):
+            raise AssertionError("the frame after the 2M reload differs from "
+                                 "the first")
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        for name in ("enum_keys", "blend_tiles_fwd"):
+            if launches[name] != s.renders:
+                raise AssertionError(f"{name} launched {launches[name]} "
+                                     f"times for {s.renders} /render")
+        others = {k: v for k, v in launches.items()
+                  if k not in ("enum_keys", "blend_tiles_fwd") and v}
+        if others:
+            raise AssertionError(f"the viewer launched {others}")
+
+        fps = 0.0
+        for ms in s.ms["orbit"]:       # the page's EMA (js:1582-1583)
+            fps = 0.9 * fps + 0.1 * (1000 / max(ms, 1))
+        out = {"renders": s.renders, "launches": launches,
+               "render_ms": {g: percentiles(v) for g, v in s.ms.items()},
+               "page_fps_ema": fps,
+               "png_bytes": percentiles(s.png_bytes),
+               "reload_2m_s": reload_s,
+               "max_memory_allocated_bytes": peak,
+               "allocated_before_the_session_bytes": held,
+               "orbit_frames": orbit[:VIEW_CLI_FRAMES], "select_payload": sel}
+        out["breakdown_ms"] = viewer_breakdown(srv, port, lab, device,
+                                               s.ms["orbit"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    return out
+
+
+def on_new_thread(fn, srv) -> None:
+    """``fn()`` on a thread of its own with the viewer's device current, as
+    its handlers run it."""
+    def run():
+        with srv._on_device():
+            fn()
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+
+
+def viewer_breakdown(srv, port, lab, device, orbit_ms) -> dict:
+    """Server-side times of one frame at the session's first pose: the
+    edits, ``render``, the frame's assembly with its copy to the host and
+    the PNG encode at each level (median of 10 after 2 warm-ups; CUDA
+    events for the device work, the host clock with the card synchronised
+    for the rest), the same steps each on a new thread as a handler runs
+    them, and a round trip that carries no frame; the rest of the client's
+    p50 is HTTP and parsing."""
+    cam = srv._camera(*VIEW_POSE)
+    every = (EditState().displace(lab, (0.1, 0.0, 0.0))
+             .toggle_visibility((lab + 1) % 16)
+             .set_color(lab, (0.1, 0.9, 0.2)))
+    every.selected_label, every.selection_mode = lab, True
+
+    def host_ms(fn, reps=10, warmup=2):
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    row = {}
+    row["apply_edits none"] = cuda_ms(
+        lambda: apply_edits(srv.scene, EditState()))[0]
+    row["apply_edits each kind + highlight"] = cuda_ms(
+        lambda: apply_edits(srv.scene, every))[0]
+    row["render"] = cuda_ms(lambda: render(srv.scene, cam, CFG,
+                                           device=device))[0]
+    row["render labels"] = cuda_ms(lambda: render(
+        srv.scene, cam, CFG, with_labels=True, device=device))[0]
+    out = render(srv.scene, cam, CFG, with_labels=True, device=device)
+    row["assemble + copy"] = host_ms(
+        lambda: assemble_frame(out["image"], None, srv.palette))
+    row["assemble + copy labels"] = host_ms(
+        lambda: assemble_frame(out["image"], out["label_map"], srv.palette))
+    pix = assemble_frame(out["image"], None, srv.palette)
+    encode = {}
+    for level in VIEW_ENCODE_LEVELS:
+        encode[level] = {"ms": host_ms(lambda: png.encode_png(pix, level)),
+                         "bytes": len(png.encode_png(pix, level))}
+        row[f"encode_png level {level}"] = encode[level]["ms"]
+    row["frame_pixels (in process)"] = host_ms(
+        lambda: srv.frame_pixels(*VIEW_POSE))
+    row["render_frame (in process)"] = host_ms(
+        lambda: srv.render_frame(*VIEW_POSE))
+    # ThreadingHTTPServer answers each request on a new thread
+    for name, fn in (
+            ("render", lambda: render(srv.scene, cam, CFG, device=device)),
+            ("assemble + copy",
+             lambda: assemble_frame(out["image"], None, srv.palette)),
+            (f"encode_png level {PNG_LEVEL}",
+             lambda: png.encode_png(pix, PNG_LEVEL)),
+            ("render_frame", lambda: srv.render_frame(*VIEW_POSE)),
+            ("nothing", lambda: None)):
+        row[f"{name} on a new thread"] = host_ms(
+            lambda: on_new_thread(fn, srv))
+    row["HTTP round trip /cameras"] = statistics.median(
+        fetch(port, "/cameras")[3] for _ in range(20))
+    row["client p50 (orbit)"] = statistics.median(orbit_ms)
+    row["rest: HTTP + parsing"] = row["client p50 (orbit)"] - (
+        row["apply_edits none"] + row["render"] + row["assemble + copy"]
+        + row[f"encode_png level {PNG_LEVEL}"])
+    row["png_level"] = PNG_LEVEL
+    row["encode"] = encode
+    return row
+
+
+def viewer_cli(ply_path: Path, work: Path, device, v1: dict,
+               size=(WIDTH, HEIGHT)) -> dict:
+    """Phase V2: ``cli.view`` as a subprocess on the 2M PLY; seconds from
+    its start to the printed port (PLY read, kernel load, prewarm), then
+    10 frames and a /select equal to V1's. The subprocess is stopped in a
+    ``finally``: terminate, wait, then kill."""
+    w, h = size
+    save_cameras(str(work / "cameras.json"),
+                 orbit_cameras(8, 3.0, width=w, img_height=h))
+    cmd = [sys.executable, "-u", "-m", "gsplat_tpu_torch.cli.view",
+           "--ply_file", str(ply_path), "--camera_file",
+           str(work / "cameras.json"), "--port", "0", "--width", str(w),
+           "--height", str(h)]
+    if device.type != "cuda":       # the CLI's default is the card
+        cmd += ["--device", str(device)]
+    lines = queue.Queue()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line.rstrip("\n"))
+        lines.put(None)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        port = None
+        while port is None:
+            try:
+                line = lines.get(timeout=max(
+                    1.0, t0 + VIEW_CLI_START_S - time.perf_counter()))
+            except queue.Empty:
+                raise AssertionError(f"cli.view printed no port in "
+                                     f"{VIEW_CLI_START_S} s") from None
+            if line is None:
+                raise AssertionError(f"cli.view exited with "
+                                     f"{proc.wait()} before serving")
+            log(f"  | {line}")
+            m = re.search(r"viewer at http://[^/]+:(\d+)/", line)
+            port = int(m.group(1)) if m else None
+        startup_s = time.perf_counter() - t0
+        th0, ph0, r0 = VIEW_POSE
+        ms = []
+        for i, want in enumerate(v1["orbit_frames"]):
+            data, t = fetch_ok(port, "/render?" + view_query(
+                th0 + 0.01 * i, ph0, r0), "image/png")
+            ms.append(t)
+            if not np.array_equal(png.decode_png(data), want):
+                raise AssertionError(f"cli.view frame {i} differs from V1's")
+        sel = json.loads(fetch_ok(port, "/select?x=0.5&y=0.5&" + view_query(
+            th0, ph0, r0, sel=True), "application/json")[0])
+        if sel != v1["select_payload"]:
+            raise AssertionError(f"cli.view /select answered {sel}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=30)
+    return {"startup_s": startup_s, "render_ms": percentiles(ms),
+            "frames_equal_to_v1": len(ms), "select": sel}
+
+
+def viewer_card_vs_cpu(device) -> dict:
+    """Phase V3: on tests/test_viewer.py's fixture scene, the card server's
+    frames with and without labels against a CPU server's (>= 99.9% of
+    uint8 values equal, none more than 2 apart: the render's 5e-3 after
+    truncation) and their /select payloads equal."""
+    n, seed = VIEW_SMALL["n"], VIEW_SMALL["seed"]
+    w, h = VIEW_SMALL["size"]
+    scene = random_scene(n, seed=seed, extent=1.0, scale_range=(0.05, 0.1),
+                         num_labels=4, device="cpu")
+    cams = orbit_cameras(VIEW_SMALL["cameras"], 3.0, width=w, img_height=h)
+    servers = [ViewerServer(scene, width=w, height=h, cameras=cams,
+                            device=d) for d in (device, "cpu")]
+    httpds = [serve_in_thread(s) for s in servers]
+    ports = [x.server_address[1] for x in httpds]
+    try:
+        queries = [view_query(t, 0.2, 3.0, labels=lab)
+                   for t in (0.0, 0.5, 1.7, 3.0, 4.4) for lab in (0, 1)]
+        queries += [view_query(0, 0, 3.0, labels=lab, cam=i)
+                    for i in range(len(cams)) for lab in (0, 1)]
+        equal = worst = 0
+        values = 0
+        for q in queries:
+            card_pix, cpu_pix = (png.decode_png(fetch_ok(
+                p, "/render?" + q, "image/png")[0]) for p in ports)
+            d = np.abs(card_pix.astype(np.int32) - cpu_pix)
+            equal += int((d == 0).sum())
+            values += d.size
+            worst = max(worst, int(d.max()))
+        selects = []
+        for x, y, t in ((0.5, 0.5, 0.0), (0.3, 0.6, 0.5), (0.7, 0.4, 2.0),
+                        (0.5, 0.5, 4.4), (-4, -4, 0.0)):
+            q = f"/select?x={x}&y={y}&" + view_query(t, 0.2, 3.0)
+            a, b = (json.loads(fetch_ok(p, q, "application/json")[0])
+                    for p in ports)
+            selects.append(a == b)
+    finally:
+        for x in httpds:
+            x.shutdown()
+            x.server_close()
+    res = {"frames": len(queries), "equal_share": equal / values,
+           "max_diff": worst, "selects_equal": selects}
+    if not (res["equal_share"] >= 0.999 and worst <= 2 and all(selects)):
+        raise AssertionError(f"the card's viewer differs from the CPU's: "
+                             f"{res}")
+    return res
+
+
+def viewer_phase(scene, ply_path: Path, device, card) -> dict:
+    """Phase V: the live viewer at real size (V1 in process over HTTP, V2
+    the CLI, V3 the card against the CPU). Returns V1's launch counts."""
+    work = REPO / "build" / "chip_smoke" / "viewer"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        v1 = viewer_session(scene, ply_path, work, device)
+        frames = v1.pop("orbit_frames")
+        log({"phase": "V1 viewer session", "wall_s": time.perf_counter() - t0,
+             **{k: v for k, v in v1.items() if k != "breakdown_ms"},
+             "card": card})
+        log({"measure": "viewer frame breakdown", "ms": v1["breakdown_ms"],
+             "card": card})
+        t0 = time.perf_counter()
+        v2 = viewer_cli(ply_path, work, device,
+                        {"orbit_frames": frames,
+                         "select_payload": v1["select_payload"]})
+        log({"phase": "V2 viewer CLI", "wall_s": time.perf_counter() - t0,
+             **v2, "card": card})
+        v3 = viewer_card_vs_cpu(device)
+        log({"check": "viewer card vs CPU", **v3})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        # a handler class holds its viewer, and with it a scene on the
+        # card, in a reference cycle: free it before phase 5 measures
+        gc.collect()
+    return v1["launches"]
+
+
 def rehearse(views: int, reduce: int) -> int:
     """Phase L at reduced size on the CPU, where the kernel wrappers take
     their plain versions: the 2M scene with ``reduce`` times fewer
@@ -1962,8 +2486,13 @@ def main(argv=None) -> int:
     # K. clustering: the k-means and region-growing CLIs
     t0 = time.perf_counter()
     cluster = cluster_phase(scene, ply_path, device, card)
-    ply_path.unlink()
     log({"phase": "K done", "wall_s": time.perf_counter() - t0})
+
+    # V. the live viewer: the 2M scene over HTTP, its CLI, card vs CPU
+    t0 = time.perf_counter()
+    view_launches = viewer_phase(scene, ply_path, device, card)
+    ply_path.unlink()
+    log({"phase": "V done", "wall_s": time.perf_counter() - t0})
 
     # 5. times
     results = {}
@@ -2062,7 +2591,8 @@ def main(argv=None) -> int:
     by_path = {k: {"render": launches[k], "train": train_launches[k],
                    "label": label_launches[k], "render_cli": cli_launches[k],
                    "train_cli": train_cli_launches[k],
-                   "cluster": cluster["launches"][k]}
+                   "cluster": cluster["launches"][k],
+                   "view": view_launches[k]}
                for k in launches}
 
     def blend_row(k):

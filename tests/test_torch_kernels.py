@@ -1,7 +1,8 @@
 """The port's CUDA kernels (B4 ``enum_keys``, B1 ``blend_tiles_fwd``, B2
 ``blend_tiles_bwd``, B3 ``cumsum_rows``, the fold's boundary gathers
-``segment_sums``, B5 ``blend_tiles_vis``), their wrappers, the skip test of B5 and B2 (``csrc/blend_cull.cuh``) through its
-plain mirror, and the vote on the card against the CPU; the host code the
+``segment_sums``, B5 ``blend_tiles_vis``), their wrappers, the skip test of
+B5 and B2 (``csrc/blend_cull.cuh``) through its plain mirror, the vote and
+the live viewer's frames on the card against the CPU; the host code the
 card's machine runs without Pillow (the PNG reader and resize give the bits
 whose digests ``test_torch_train_cli.py`` takes from Pillow), and k-means
 and the batched ``torch.linalg.eigh`` of region growing on the card.
@@ -28,6 +29,7 @@ from hypothesis import strategies as st
 from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.cluster import kmeans, region_growing
 from gsplat_tpu_torch.config import UNLABELED
+from gsplat_tpu_torch.interact import viewer
 from gsplat_tpu_torch.io import cameras, png, synthetic
 from gsplat_tpu_torch.label import vote
 from gsplat_tpu_torch.models import trainer
@@ -1089,3 +1091,64 @@ def test_batched_eigh_and_normals_on_card_match_cpu(card):
                                                 30)
     assert float((n_card.cpu() - n_cpu).abs().max()) <= 1e-4
     torch.testing.assert_close(r_card.cpu(), r_cpu, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_viewer_frames_on_card_match_cpu(card):
+    """The viewer of ``tests/test_viewer.py``'s fixture scene (200
+    gaussians, seed 3, 64x48, 4 orbit cameras) on the card against a CPU
+    viewer, over HTTP: frames with and without labels, orbit and presets,
+    at the render's bar after truncation to uint8 (none more than 2 apart,
+    >= 99.9% equal), and the /select payloads equal."""
+    import json
+    import threading
+    from http.client import HTTPConnection
+    from http.server import ThreadingHTTPServer
+
+    scene = synthetic.random_scene(200, seed=3, extent=1.0,
+                                   scale_range=(0.05, 0.1), num_labels=4,
+                                   device="cpu")
+    cams = cameras.orbit_cameras(4, 3.0, width=64, img_height=48)
+    servers = [viewer.ViewerServer(scene, width=64, height=48, cameras=cams,
+                                   device=d) for d in (card, "cpu")]
+    assert servers[0].device.type == "cuda"
+    httpds = [ThreadingHTTPServer(("127.0.0.1", 0), s.make_handler())
+              for s in servers]
+    for h in httpds:
+        threading.Thread(target=h.serve_forever, daemon=True).start()
+
+    def get(h, path):
+        conn = HTTPConnection("127.0.0.1", h.server_address[1], timeout=120)
+        try:
+            conn.request("GET", path)
+            r = conn.getresponse()
+            assert r.status == 200
+            return r.getheader("Content-Type"), r.read()
+        finally:
+            conn.close()
+
+    try:
+        queries = [f"theta={t}&phi=0.2&r=3&labels={lab}"
+                   for t in (0.0, 0.5, 1.7, 3.0) for lab in (0, 1)]
+        queries += [f"cam={i}&r=3&labels={lab}" for i in range(4)
+                    for lab in (0, 1)]
+        equal = total = 0
+        for q in queries:
+            got, want = (get(h, "/render?" + q) for h in httpds)
+            assert got[0] == want[0] == "image/png"
+            d = np.abs(png.decode_png(got[1]).astype(np.int32)
+                       - png.decode_png(want[1]))
+            assert d.max() <= 2, q
+            equal += int((d == 0).sum())
+            total += d.size
+        assert equal / total >= 0.999
+        for q in ("x=0.5&y=0.5&theta=0&phi=0&r=3",
+                  "x=0.3&y=0.6&theta=0.5&phi=0.2&r=3",
+                  "x=0.5&y=0.5&cam=2&r=3", "x=-4&y=-4&theta=0&phi=0&r=3"):
+            got, want = (json.loads(get(h, "/select?" + q)[1])
+                         for h in httpds)
+            assert got == want, q
+    finally:
+        for h in httpds:
+            h.shutdown()
+            h.server_close()
