@@ -126,7 +126,25 @@ V. the live viewer at real size: V1 a ``ViewerServer`` of phase 3's 2M
    gathers also replayed from a CUDA graph (the kernel without its
    wrapper's host work), the plain versions' times,
    bounds (at the P1 rates and at the data sheet's), and peak device
-   memory.
+   memory;
+M. the multi-device path (``gsplat_tpu_torch/parallel/``) on phase 3's 2M
+   scene at 800x608, view 0. M1: a process group of one rank over NCCL
+   (``initialize_distributed``, ``make_mesh()``), the exchange and the
+   image gather through NCCL's collectives: ``render_sharded`` with labels
+   bit-equal to ``render`` (image, transmittance, best weight, label map);
+   one sharded ``make_train_step`` step at phase 4's capacity, its loss
+   bit-equal to the single-device step's and every gradient within 1e-3 of
+   its peak; B4, B1, B2, B3 and the gathers launched once each in the step.
+   M2: D = 2, 4 and 8 logical shards on the card, each render bit-equal to
+   ``render``; one sharded step at D = 4, held as M1's is (B4, B1, B2, B3
+   and the gathers under a lattice of 2x2 shards, once a shard); then ``parallel.scaling``'s report at D = 1, 2, 4, 8 (each
+   shard's B4, B1 and B2 replayed from a CUDA graph, max and mean over the
+   shards; ``inst_eff``, ``batch_eff``; rows and bytes each shard receives
+   against the all-gather's). M3: at D = 4, the center and the visible vote
+   over 16 views and the visibility masks equal their single-device
+   results, and k-means' labels agree on >= 99.99% (sums over shards add in
+   another order). The shards share the one card, so no time here is a
+   D-card time.
 
 The second-to-last line of stdout is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``.
@@ -144,6 +162,7 @@ import json
 import queue
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -179,6 +198,9 @@ from gsplat_tpu_torch.io.synthetic import random_scene, thin_splats_projection
 from gsplat_tpu_torch.label import vote
 from gsplat_tpu_torch.label.adapters import _nearest_resize
 from gsplat_tpu_torch.models import densify, trainer
+from gsplat_tpu_torch.parallel import bootstrap, scaling
+from gsplat_tpu_torch.parallel import mesh as mesh_lib
+from gsplat_tpu_torch.parallel.render_sharded import render_sharded
 from gsplat_tpu_torch.render import blend, tiles
 from gsplat_tpu_torch.render.api import (_render_impl, _segment_sums_plain,
                                          enumeration_rows,
@@ -265,6 +287,15 @@ KMEANS_K = 10
 RG_GAUSSIANS = 100_000
 KMEANS_CPU_GAUSSIANS = 200_000
 RG_CPU_GAUSSIANS, RG_CPU_NORMALS_K = 5_000, 200
+
+# Phase M, the multi-device path: logical shards on the one card (the
+# card's machine has one), the votes over 16 views at D = 4, k-means'
+# agreement bar of phase K's card-vs-CPU check.
+MESH_SHARDS = (2, 4, 8)
+MESH_STEP_SHARDS = 4
+MESH_VOTE_VIEWS = 16
+MESH_VOTE_SHARDS = 4
+MESH_KMEANS_AGREEMENT = 0.9999
 
 
 def log(obj) -> None:
@@ -2285,6 +2316,221 @@ def viewer_phase(scene, ply_path: Path, device, card) -> dict:
     return v1["launches"]
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def perturbed_capacity_state(scene, device):
+    """Phase 4's training input: the scene's DC colours, means and
+    opacities moved by seeded noise, padded to 1.25x capacity."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    n = scene.num_gaussians
+    p = trainer.SceneParams.from_scene(scene)
+    sh = p.sh.clone()
+    sh[:, 0] += 0.05 * torch.randn(n, 3, generator=gen, device=device)
+    p = p._replace(
+        means=p.means + 0.002 * torch.randn(n, 3, generator=gen,
+                                            device=device),
+        sh=sh, opacities=p.opacities - 0.5)
+    capacity = -(-int(1.25 * n) // 128) * 128
+    return densify.pad_to_capacity(p, scene.labels, capacity)
+
+
+def sharded_render_equal(scene, cam, mesh, want, device) -> dict:
+    """``render_sharded`` with labels of ``scene`` over ``mesh`` against
+    ``render``'s ``want``: equal bit for bit, and its CUDA-event ms."""
+    camp = CameraParams.from_camera(cam, device)
+    sharded = mesh_lib.shard_scene(scene, mesh)
+    ms, got = cuda_ms_once(lambda: render_sharded(
+        sharded, camp, mesh, width=cam.width, height=cam.height, cfg=CFG,
+        with_labels=True))
+    equal = {k: bool(torch.equal(got[k], want[k]))
+             for k in ("image", "transmittance", "best_weight", "label_map")}
+    if not all(equal.values()):
+        raise AssertionError(f"sharded render over {mesh.dims} differs "
+                             f"from render: {equal}")
+    return {"mesh": list(mesh.dims), "equal": equal, "ms": ms}
+
+
+def single_step_reference(scene, cam, target, device) -> dict:
+    """Phase 4's capacity state of ``scene``, the single-device
+    ``make_train_step`` step's loss on it (l2 against ``target``, view
+    ``cam``) and its gradients: what phase M's sharded steps are held
+    to."""
+    params, labels = perturbed_capacity_state(scene, device)
+    camp = CameraParams.from_camera(cam, device)
+    bg = torch.zeros(3, device=device)
+    step = trainer.make_train_step((WIDTH, HEIGHT), CFG, lr=TRAIN_LR,
+                                   loss="l2")
+    _, loss, _ = step(trainer.init_state(params.to_scene(labels),
+                                         lr=TRAIN_LR), labels, camp, target,
+                      bg)
+    grads = trainer._grads(params, labels, [(camp, target, bg)],
+                           trainer.l2_loss, width=WIDTH, height=HEIGHT,
+                           cfg=CFG, mesh=None)[0]
+    return {"params": params, "labels": labels, "camp": camp,
+            "target": target, "bg": bg, "loss": float(loss),
+            "grads": grads}
+
+
+def sharded_step_check(tag, mesh, ref, counted) -> dict:
+    """One sharded ``make_train_step`` step over ``mesh`` on ``ref``'s
+    state (:func:`single_step_reference`): its loss bit-equal to the
+    single-device step's, every gradient within 1e-3 of its peak (the
+    card-vs-CPU bar), and B4, B1, B2, B3 and the gathers launched once a
+    shard. Raises otherwise."""
+    d = mesh.size
+    sharded = mesh_lib.shard_scene(ref["params"].to_scene(ref["labels"]),
+                                   mesh)
+    step = trainer.make_train_step((WIDTH, HEIGHT), CFG, lr=TRAIN_LR,
+                                   loss="l2", mesh=mesh)
+    (state, loss, nd), got = counted(tag, lambda: step(
+        trainer.init_state(sharded, lr=TRAIN_LR), sharded.labels,
+        ref["camp"], ref["target"], ref["bg"]))
+    if any(got[name] != d for name in TRAIN_CLI_KERNELS):
+        raise AssertionError(f"{tag} launched {got}")
+    views = [(ref["camp"], ref["target"], ref["bg"])]
+    g_mesh = mesh_lib.gather_rows(trainer._grads(
+        sharded.map(trainer.SceneParams.from_scene), sharded.labels, views,
+        trainer.l2_loss, width=WIDTH, height=HEIGHT, cfg=CFG, mesh=mesh)[0])
+    errs = {f: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for f, a, b in zip(trainer.SceneParams._fields, g_mesh,
+                               ref["grads"])}
+    res = {"mesh": list(mesh.dims), "loss": float(loss),
+           "single_device_loss": ref["loss"],
+           "loss_equal": float(loss) == ref["loss"],
+           "num_dropped": int(nd),
+           "capacity": int(ref["params"].means.shape[0]),
+           "grad_max_err_over_peak": errs, "step": state.step}
+    if not (res["loss_equal"] and int(nd) == 0
+            and max(errs.values()) <= 1e-3):
+        raise AssertionError(f"{tag}: {res}")
+    return res
+
+
+def mesh_phase(scene, cam, device, card) -> dict:
+    """Phase M: M1 over a one-rank NCCL process group, M2 D logical shards
+    and the scaling report, M3 the sharded votes and k-means (module
+    docstring). Returns the sharded main path's launches: M1's render and
+    train step, M2's renders and M3's votes."""
+    out = {}
+    want = render(scene, cam, CFG, with_labels=True, device=device)
+    torch.cuda.synchronize()
+    launches = {}
+
+    def counted(tag, fn):
+        reset_launches()
+        res = fn()
+        got = read_launches()
+        out.setdefault("launches", {})[tag] = got
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return res, got
+
+    # the single-device step's loss and gradients, which M1's and M2's
+    # sharded steps are held to
+    ref = single_step_reference(scene, cam, want["image"], device)
+
+    # M1: one rank over NCCL
+    t0 = time.perf_counter()
+    bootstrap.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                     backend="nccl")
+    try:
+        mesh = mesh_lib.make_mesh()
+        if not (mesh.distributed and mesh.dims == (1, 1)):
+            raise AssertionError(f"NCCL mesh of one rank: {mesh}")
+        out["M1 render"], got = counted(
+            "M1 render", lambda: sharded_render_equal(scene, cam, mesh, want,
+                                                      device))
+        if not (got["enum_keys"] == got["blend_tiles_fwd"] == 1):
+            raise AssertionError(f"M1 render launched {got}")
+        out["M1 train step"] = sharded_step_check(
+            "M1 train step", mesh, ref, counted)
+    finally:
+        torch.distributed.destroy_process_group()
+    out["M1 wall_s"] = time.perf_counter() - t0
+    log({"phase": "M1 NCCL world size 1", **out["M1 render"],
+         **out["M1 train step"], "launches": out["launches"],
+         "wall_s": out["M1 wall_s"], "card": card})
+
+    # M2: D logical shards on the card, then the scaling report
+    t0 = time.perf_counter()
+    for d in MESH_SHARDS:
+        mesh = mesh_lib.make_mesh(scaling._shape(d), [device])
+        res, got = counted(f"M2 render D={d}", lambda: sharded_render_equal(
+            scene, cam, mesh, want, device))
+        if not (got["enum_keys"] == got["blend_tiles_fwd"] == d):
+            raise AssertionError(f"M2 render at D={d} launched {got}")
+        log({"phase": "M2 sharded render", "shards": d, **res,
+             "launches": got, "card": card})
+    # B4, B1, B2, B3 and the gathers under a lattice that is not the whole
+    # grid, at the 2M frame, against the single-device step
+    mesh = mesh_lib.make_mesh(scaling._shape(MESH_STEP_SHARDS), [device])
+    out["M2 train step"] = sharded_step_check(
+        f"M2 train step D={MESH_STEP_SHARDS}", mesh, ref, counted)
+    log({"phase": "M2 sharded train step", "shards": MESH_STEP_SHARDS,
+         **out["M2 train step"],
+         "launches": out["launches"][f"M2 train step D={MESH_STEP_SHARDS}"],
+         "card": card})
+    del ref
+    rows = scaling.efficiencies([
+        scaling.scaling_row(scene, cam, d, device, CFG, timed=True)
+        for d in scaling.SHARDS])
+    for r in rows:
+        log({"measure": "scaling", **r, "card": card})
+    out["scaling"] = rows
+    out["M2 wall_s"] = time.perf_counter() - t0
+
+    # M3: the sharded votes and k-means at D = 4
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_mesh(scaling._shape(MESH_VOTE_SHARDS), [device])
+    vcams = orbit_cameras(MESH_VOTE_VIEWS, 3.0, width=WIDTH,
+                          img_height=HEIGHT)
+    seg = np.random.default_rng(3).integers(
+        -1, LABEL_CLASSES - 1, size=(MESH_VOTE_VIEWS, SEG_SIZE[1],
+                                     SEG_SIZE[0])).astype(np.int32)
+    res = {}
+    for fn in ("assign_labels", "assign_labels_visible"):
+        one = getattr(vote, fn)(scene, vcams, seg, num_classes=LABEL_CLASSES,
+                                return_votes=True, device=device)
+        (got_l, got_v), got = counted(f"M3 {fn}", lambda: getattr(vote, fn)(
+            scene, vcams, seg, num_classes=LABEL_CLASSES, return_votes=True,
+            mesh=mesh, device=device))
+        res[fn] = {"labels_equal": bool(torch.equal(got_l, one[0])),
+                   "votes_equal": bool(torch.equal(got_v, one[1])),
+                   "labeled": float((got_l >= 0).float().mean())}
+    res["visibility_masks_equal"] = bool(torch.equal(
+        vote.visibility_masks(scene, vcams, mesh=mesh, device=device),
+        vote.visibility_masks(scene, vcams, device=device)))
+    if out["launches"]["M3 assign_labels_visible"]["blend_tiles_vis"] \
+            != MESH_VOTE_VIEWS:
+        raise AssertionError("the sharded visibility pass launched B5 "
+                             f"{out['launches']} times")
+    feats = km.scene_features(scene)
+    k_one = km.kmeans(feats, KMEANS_K)
+    k_mesh = km.kmeans(feats, KMEANS_K, mesh=mesh)
+    res["kmeans"] = {
+        "labels_equal": bool(torch.equal(k_mesh.labels, k_one.labels)),
+        "agreement": float((k_mesh.labels == k_one.labels).float().mean()),
+        "iterations": [k_one.iterations, k_mesh.iterations],
+        "centroid_max_abs_err": float(
+            (k_mesh.centroids - k_one.centroids).abs().max())}
+    out["M3"] = res
+    out["M3 wall_s"] = time.perf_counter() - t0
+    log({"phase": "M3 sharded votes and k-means", "shards": MESH_VOTE_SHARDS,
+         "views": MESH_VOTE_VIEWS, **res, "wall_s": out["M3 wall_s"],
+         "card": card})
+    if not (all(res[f]["labels_equal"] and res[f]["votes_equal"]
+                for f in ("assign_labels", "assign_labels_visible"))
+            and res["visibility_masks_equal"]
+            and res["kmeans"]["agreement"] >= MESH_KMEANS_AGREEMENT):
+        raise AssertionError(f"M3: sharded results differ: {res}")
+    out["sharded_launches"] = launches
+    return out
+
+
 def rehearse(views: int, reduce: int) -> int:
     """Phase L at reduced size on the CPU, where the kernel wrappers take
     their plain versions: the 2M scene with ``reduce`` times fewer
@@ -2588,11 +2834,20 @@ def main(argv=None) -> int:
         results[tag] = (row, b4, b3, fb, blends)
 
     row, b4, b3, fb, blends = results["2M view 0"]
+    del bench, big, fr, rows, drows, cs
+    gc.collect()
+
+    # M. the multi-device path: NCCL at one rank, D shards on the card
+    t0 = time.perf_counter()
+    meshed = mesh_phase(scene, cams[0], device, card)
+    log({"phase": "M done", "wall_s": time.perf_counter() - t0})
+    sharded_launches = meshed["sharded_launches"]
     by_path = {k: {"render": launches[k], "train": train_launches[k],
                    "label": label_launches[k], "render_cli": cli_launches[k],
                    "train_cli": train_cli_launches[k],
                    "cluster": cluster["launches"][k],
-                   "view": view_launches[k]}
+                   "view": view_launches[k],
+                   "sharded": sharded_launches[k]}
                for k in launches}
 
     def blend_row(k):

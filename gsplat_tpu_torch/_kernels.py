@@ -3,8 +3,10 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, which ``ctypes`` loads; no source includes
 PyTorch's headers, so a build takes seconds. Libraries go to
-``build/torch_kernels/`` at the repo root, named by a hash of the source, the
-shared headers (``csrc/*.cuh``) and the flags, and are built at first use,
+``torch_kernels/`` under :data:`BUILD_ROOT` (the repo's ``build/`` in a
+checkout, a user cache when the package is installed), named by a hash of
+the source, the shared headers (``csrc/*.cuh``) and the flags, and are
+built at first use,
 never at import: importing the package does not need ``nvcc``. :func:`build`
 compiles every missing library with one ``nvcc`` process per source, all
 started together.
@@ -29,7 +31,23 @@ from typing import Dict
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+
+
+def _build_root() -> Path:
+    """Where the port builds its libraries: ``build/`` of the repository
+    when the package lies in a checkout (``pyproject.toml`` beside it),
+    else ``$XDG_CACHE_HOME/gsplat_tpu_torch`` (``~/.cache`` without it),
+    since an installed package's directory need not be writable."""
+    root = Path(__file__).resolve().parent.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "gsplat_tpu_torch"
+
+
+BUILD_ROOT = _build_root()
+BUILD_DIR = BUILD_ROOT / "torch_kernels"
 
 # -fmad=false: no contraction of a*b+c into FMA, so the kernels round like
 # the plain torch versions (one rounding per operation); see the sources.
@@ -44,11 +62,12 @@ _F = ctypes.c_float
 # source name -> (C entry point, argument types)
 SIGNATURES = {
     "enum_keys": ("gsplat_enum_keys",
-                  [_P] * 12 + [_I, _I, _I, _F, _I] + [_P, _P, _P]),
+                  [_P] * 12 + [_I, _I, _I, _F, _I] + [_I] * 4
+                  + [_P, _P, _P]),
     "blend_fwd": ("gsplat_blend_fwd",
-                  [_P] * 3 + [_I] * 6 + [_F] * 3 + [_I] + [_P] * 5),
+                  [_P] * 3 + [_I] * 10 + [_F] * 3 + [_I] + [_P] * 5),
     "blend_bwd": ("gsplat_blend_bwd",
-                  [_P] * 3 + [_I] * 6 + [_F] * 3 + [_P] * 4 + [_I]
+                  [_P] * 3 + [_I] * 10 + [_F] * 3 + [_P] * 4 + [_I]
                   + [_P] * 2),
     "cumsum_rows": ("gsplat_cumsum_rows", [_P, _I, _P, _I, _P, _P]),
     "fold_segments": ("gsplat_fold_segments", [_P, _I, _P, _P, _I, _P, _P]),

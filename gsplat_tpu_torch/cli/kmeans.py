@@ -5,8 +5,9 @@ Usage (reference k_means.py:198-203, README.md:71-75):
         --save_path clustered.ply --k 10 [--device cpu]
 
 The counterpart of ``gsplat_tpu.cli.kmeans`` with the same flags and printed
-lines, plus ``--device`` (default: the card). ``--sharded`` comes with the
-port's multi-GPU slice and raises until then.
+lines, plus ``--device`` (default: the card). ``--sharded`` splits the
+points over a mesh of every visible card (``parallel/mesh.py``; of one CPU
+shard under ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -30,15 +31,10 @@ def main(argv=None) -> int:
     ap.add_argument("--binary", action="store_true",
                     help="write binary PLY (reference writes ascii)")
     ap.add_argument("--sharded", action="store_true",
-                    help="shard the points over all devices (not ported "
-                         "yet)")
+                    help="shard the points over all devices")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: the sharded k-means comes with the port's multi-GPU "
-            "slice (parallel/mesh.py)")
 
     from gsplat_tpu_torch.cluster import kmeans as km
     from gsplat_tpu_torch.io import ply
@@ -48,9 +44,15 @@ def main(argv=None) -> int:
     scene = ply.scene_from_ply(args.file_path, device=device)
     print(f"loaded {scene.num_gaussians} gaussians")
 
+    mesh = None
+    if args.sharded:
+        from gsplat_tpu_torch.parallel import mesh as mesh_lib
+        mesh = (mesh_lib.make_mesh(devices=[device]) if device.type == "cpu"
+                else mesh_lib.make_mesh())
+
     out, res = km.cluster_scene(
         scene, k=args.k, with_color=not args.no_color_features,
-        max_iter=args.max_iter, tol=args.tol, seed=args.seed,
+        max_iter=args.max_iter, tol=args.tol, seed=args.seed, mesh=mesh,
         recolor=not args.no_recolor)
     print(f"converged in {res.iterations} iterations "
           f"(final shift {res.shift:.2e})")

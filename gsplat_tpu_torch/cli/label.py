@@ -9,8 +9,10 @@ Usage (reference py:336-344, README.md:59-67):
 The counterpart of ``gsplat_tpu.cli.label`` with the same flags, plus
 ``--device`` (default ``cuda``: the vote, the visibility renders and the
 segmentation model run on the card). The 'npy' model replays precomputed
-``{img_name}_seg.npy`` maps from --output_dir. ``--sharded`` is not ported
-yet and raises.
+``{img_name}_seg.npy`` maps from --output_dir. ``--sharded`` shards the
+center vote over a mesh of every visible card (``parallel/mesh.py``; of one
+CPU shard under ``--device cpu``), as the JAX CLI passes its mesh to the
+center vote alone.
 """
 
 from __future__ import annotations
@@ -37,8 +39,7 @@ def main(argv=None) -> int:
                     help="downscale seg maps to this max dimension before "
                          "voting (default: first map's resolution)")
     ap.add_argument("--sharded", action="store_true",
-                    help="shard views/gaussians over all devices (not "
-                         "ported yet)")
+                    help="shard views/gaussians over all devices")
     ap.add_argument("--mode", default="center",
                     choices=["center", "visible"],
                     help="'center' = reference-parity center projection; "
@@ -52,10 +53,6 @@ def main(argv=None) -> int:
                     help="torch device of the vote and the models "
                          "(default: the card)")
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: the sharded vote comes with the port's multi-GPU "
-            "slice (parallel/mesh.py)")
 
     from gsplat_tpu_torch.io import ply, png
     from gsplat_tpu_torch.io.cameras import load_cameras
@@ -111,6 +108,12 @@ def main(argv=None) -> int:
         print("error: no segmentation maps produced", file=sys.stderr)
         return 1
 
+    mesh = None
+    if args.sharded:
+        from gsplat_tpu_torch.parallel import mesh as mesh_lib
+        mesh = (mesh_lib.make_mesh(devices=[device]) if device.type == "cpu"
+                else mesh_lib.make_mesh())
+
     if args.mode == "visible":
         labels = vote.assign_labels_visible(
             scene, used_cams, np.stack(seg_maps),
@@ -119,7 +122,7 @@ def main(argv=None) -> int:
     else:
         labels = vote.assign_labels(
             scene, used_cams, np.stack(seg_maps),
-            num_classes=args.num_classes, device=device)
+            num_classes=args.num_classes, mesh=mesh, device=device)
     labels = labels.cpu().numpy()
 
     out_path = os.path.join(args.output_dir, args.output_file)

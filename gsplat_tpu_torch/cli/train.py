@@ -11,9 +11,14 @@ with ``io/png.py`` (no PIL) and resized exactly as Pillow's
 are ``utils/checkpoint.py``'s ``torch.save`` files (no orbax): the training
 state alone, or on the adaptive path also the labels, the densify
 statistics and the state of the ``torch.Generator`` that draws the split
-noise (the JAX CLI's PRNG key), so a resumed run continues exactly. The mesh
-flags (``--mesh``, ``--coordinator``, ``--num_processes``,
-``--process_id``) parse and raise until the port's multi-GPU slice.
+noise (the JAX CLI's PRNG key), so a resumed run continues exactly.
+
+The mesh flags (``--mesh``, ``--coordinator``, ``--num_processes``,
+``--process_id``; ``parallel/bootstrap.py``) train the sharded scene over a
+mesh, as the JAX CLI does: ``--mesh 2x2 --device cpu`` runs 4 CPU shards
+in one process, the process flags (or torchrun's environment) one process
+a rank. Checkpoints and the PLY hold the gathered scene and are written by
+rank 0; a resumed run shards the checkpoint again.
 """
 
 from __future__ import annotations
@@ -23,19 +28,6 @@ import os
 import sys
 
 import numpy as np
-
-
-def add_mesh_args(ap: argparse.ArgumentParser) -> None:
-    """The JAX package's distributed/mesh flags
-    (``gsplat_tpu/parallel/bootstrap.py::add_mesh_args``)."""
-    ap.add_argument("--mesh", default=None,
-                    help="device mesh shape 'HOSTSxCHIPS' (e.g. 2x4) or "
-                         "'CHIPS' (not ported yet)")
-    ap.add_argument("--coordinator", default=None,
-                    help="coordinator address host:port for multi-process "
-                         "runs (not ported yet)")
-    ap.add_argument("--num_processes", type=int, default=None)
-    ap.add_argument("--process_id", type=int, default=None)
 
 
 def load_targets(camera_file: str, image_dir: str, scale: float):
@@ -95,16 +87,28 @@ def main(argv=None) -> int:
                     help="periodic opacity reset interval (0 = off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    from gsplat_tpu_torch.parallel.bootstrap import (add_mesh_args,
+                                                     mesh_from_args)
     add_mesh_args(ap)
     args = ap.parse_args(argv)
-    if (args.mesh is not None or args.coordinator is not None
-            or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(
-            "--mesh/--coordinator/--num_processes/--process_id: sharded "
-            "training comes with the port's multi-GPU slice "
-            "(parallel/bootstrap.py)")
 
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.scene import resolve_device
+
+    device = resolve_device(args.device)
+    # the process flags join a process group even without --mesh (None
+    # only for a single-device run); a group this run joined is left at
+    # its end, or NCCL holds the process at exit
+    joined = dist.is_available() and not dist.is_initialized()
+    try:
+        return _train(args, device, mesh_from_args(args, device))
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh) -> int:
     import torch
 
     from gsplat_tpu_torch.config import DEFAULT
@@ -112,11 +116,13 @@ def main(argv=None) -> int:
     from gsplat_tpu_torch.io.synthetic import random_scene
     from gsplat_tpu_torch.models import densify as dz
     from gsplat_tpu_torch.models import trainer
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
     from gsplat_tpu_torch.render.projection import CameraParams
-    from gsplat_tpu_torch.scene import resolve_device
     from gsplat_tpu_torch.utils import checkpoint as ckpt
 
-    device = resolve_device(args.device)
+    if mesh is not None:
+        device = mesh.home
+        print(f"mesh: {mesh.shape} ({mesh.world} processes)")
     cameras, targets = load_targets(args.camera_file, args.image_dir,
                                     args.scale)
     if not cameras:
@@ -148,15 +154,26 @@ def main(argv=None) -> int:
             trainer.SceneParams.from_scene(scene), scene.labels, capacity)
         scene = params0.to_scene(labels0)
         print(f"adaptive density: capacity {capacity}")
+    # a train state, labels and stats are gathered into checkpoints and
+    # sharded again on resume (the values themselves without a mesh)
+    whole = mesh_lib.gather_rows
+    sharded = ((lambda x: x) if mesh is None
+               else (lambda x: mesh_lib.shard_rows(x, mesh)))
+
+    if mesh is not None:
+        scene = mesh_lib.shard_scene(scene, mesh)
+    if adaptive:
         step = trainer.make_adaptive_train_step((w, h), DEFAULT,
-                                                loss=args.loss, **sched)
-        stats = dz.DensifyStats.zeros(scene.num_gaussians, device=device)
+                                                loss=args.loss, mesh=mesh,
+                                                **sched)
+        stats = sharded(dz.DensifyStats.zeros(scene.num_gaussians,
+                                              device=device))
         densify_until = (args.densify_until if args.densify_until is not None
                          else args.iters // 2)
         generator = torch.Generator(device=device).manual_seed(0)
     else:
         step = trainer.make_train_step((w, h), DEFAULT, loss=args.loss,
-                                       **sched)
+                                       mesh=mesh, **sched)
     state = trainer.init_state(scene, **sched)
     labels = scene.labels
     start = 0
@@ -164,20 +181,23 @@ def main(argv=None) -> int:
     # The adaptive path checkpoints everything densify mutates (labels,
     # stats, the generator's state) alongside TrainState so resume is
     # exact: a resumed run must not revert labels to the initial padded
-    # array while params contain densified children.
+    # array while params contain densified children. Under a mesh the
+    # checkpoint holds the gathered values.
     def payload():
         if adaptive:
-            return dict(state=state, labels=labels, stats=stats,
-                        generator=generator.get_state())
-        return dict(state=state)
+            return dict(state=whole(state), labels=whole(labels),
+                        stats=whole(stats), generator=generator.get_state())
+        return dict(state=whole(state))
 
+    rank0 = mesh is None or mesh.rank == 0
     ckpt_path = (os.path.join(args.checkpoint_dir, "state")
                  if args.checkpoint_dir else None)
     if ckpt_path and os.path.exists(ckpt_path):
         restored = ckpt.restore_pytree(ckpt_path, like=payload())
-        state = restored["state"]
+        state = sharded(restored["state"])
         if adaptive:
-            labels, stats = restored["labels"], restored["stats"]
+            labels = sharded(restored["labels"])
+            stats = sharded(restored["stats"])
             generator.set_state(restored["generator"])
         start = int(state.step)
         print(f"resumed at step {start}")
@@ -215,13 +235,16 @@ def main(argv=None) -> int:
                 print(f"step {it}: WARNING {int(nd)} instances dropped "
                       f"(budget too small — raise --budget_factor)")
         if ckpt_path and it > start and it % args.checkpoint_every == 0:
-            ckpt.save_pytree(ckpt_path, payload())
+            saved = payload()
+            if rank0:
+                ckpt.save_pytree(ckpt_path, saved)
 
-    final = state.params.to_scene(labels)
+    final = whole(state.params).to_scene(whole(labels))
     if adaptive:
         final = _compact_alive(final)
-    ply.scene_to_ply(args.out, final)
-    print(f"wrote {args.out}")
+    if rank0:
+        ply.scene_to_ply(args.out, final)
+        print(f"wrote {args.out}")
     return 0
 
 

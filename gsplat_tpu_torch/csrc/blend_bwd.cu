@@ -137,7 +137,8 @@ __device__ __forceinline__ bool strip_rect(int w, int ppt, int npix,
 __global__ void __launch_bounds__(kThreads, 4) blend_bwd_kernel(
     const float* __restrict__ ptab, const int* __restrict__ inst_gauss,
     const int* __restrict__ bounds, int num_tiles, int tiles_x,
-    int tile_size, int width, int height, int chunk, float alpha_min,
+    int tile_size, int width, int height, int chunk, int row_stride,
+    int row_phase, int col_stride, int col_phase, float alpha_min,
     float alpha_max, float early_eps, const float* __restrict__ rgb,
     const float* __restrict__ trans, const float* __restrict__ drgb,
     const float* __restrict__ dtrans, int total_rows,
@@ -150,8 +151,12 @@ __global__ void __launch_bounds__(kThreads, 4) blend_bwd_kernel(
   const int tile = blockIdx.x;
   const int trow = tile / tiles_x;
   const int tcol = tile - trow * tiles_x;
-  const float x0f = static_cast<float>(tcol * tile_size);
-  const float y0f = static_cast<float>(trow * tile_size);
+  // pixel positions at the global tile of the sharded render's lattice,
+  // reads of the image at the shard's local tile (blend_fwd.cu)
+  const float x0f =
+      static_cast<float>((col_phase + tcol * col_stride) * tile_size);
+  const float y0f =
+      static_cast<float>((row_phase + trow * row_stride) * tile_size);
   const int npix = tile_size * tile_size;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -354,16 +359,18 @@ __global__ void __launch_bounds__(kThreads, 4) blend_bwd_kernel(
 extern "C" int gsplat_blend_bwd(
     const void* ptab, const void* inst_gauss, const void* bounds,
     int num_tiles, int tiles_x, int tile_size, int width, int height,
-    int chunk, float alpha_min, float alpha_max, float early_eps,
-    const void* rgb, const void* trans, const void* drgb, const void* dtrans,
-    int total_rows, void* drows, void* stream) {
+    int chunk, int row_stride, int row_phase, int col_stride, int col_phase,
+    float alpha_min, float alpha_max, float early_eps, const void* rgb,
+    const void* trans, const void* drgb, const void* dtrans, int total_rows,
+    void* drows, void* stream) {
   if (num_tiles > 0) {
     blend_bwd_kernel<<<num_tiles, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(ptab),
         static_cast<const int*>(inst_gauss),
         static_cast<const int*>(bounds), num_tiles, tiles_x, tile_size,
-        width, height, chunk, alpha_min, alpha_max, early_eps,
+        width, height, chunk, row_stride, row_phase, col_stride, col_phase,
+        alpha_min, alpha_max, early_eps,
         static_cast<const float*>(rgb), static_cast<const float*>(trans),
         static_cast<const float*>(drgb), static_cast<const float*>(dtrans),
         total_rows, static_cast<float*>(drows));

@@ -32,6 +32,14 @@
 // straight to image layout, cropped at the image edge; an empty tile writes
 // T = 1, RGB = 0, label UNLABELED.
 //
+// The interleaved tile lattice of the sharded render: block t is a shard's
+// local tile (trow, tcol), global tile (row_phase + trow * row_stride,
+// col_phase + tcol * col_stride). Pixel positions, and so the staged
+// tile-local means, take the global tile's origin, as the TPU kernel's
+// window rcg (blend_pallas.py:92-106); the stores go to the local tile of
+// the shard's [tiles_y * ts, tiles_x * ts] image. At strides of 1 and phases
+// of 0 both are the single-device tile.
+//
 // Exactness: a pair is skipped only where blend_cull.cuh proves that
 // alpha < alpha_min, and such a pair changes nothing; every other pair is
 // computed as blend_pallas.py::_chunk_alphas does, in the plain version's
@@ -102,7 +110,8 @@ template <bool kLabels>
 __global__ void __launch_bounds__(kThreads, 4) blend_fwd_kernel(
     const float* __restrict__ ptab, const int* __restrict__ inst_gauss,
     const int* __restrict__ bounds, int tiles_x, int tile_size, int width,
-    int height, int chunk, float alpha_min, float alpha_max, float early_eps,
+    int height, int chunk, int row_stride, int row_phase, int col_stride,
+    int col_phase, float alpha_min, float alpha_max, float early_eps,
     float* __restrict__ rgb, float* __restrict__ trans,
     float* __restrict__ best_w, int* __restrict__ label) {
   __shared__ Staged s;
@@ -110,8 +119,10 @@ __global__ void __launch_bounds__(kThreads, 4) blend_fwd_kernel(
   const int tile = blockIdx.x;
   const int trow = tile / tiles_x;
   const int tcol = tile - trow * tiles_x;
-  const float x0f = static_cast<float>(tcol * tile_size);
-  const float y0f = static_cast<float>(trow * tile_size);
+  const float x0f =
+      static_cast<float>((col_phase + tcol * col_stride) * tile_size);
+  const float y0f =
+      static_cast<float>((row_phase + trow * row_stride) * tile_size);
   const int npix = tile_size * tile_size;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -246,9 +257,9 @@ __global__ void __launch_bounds__(kThreads, 4) blend_fwd_kernel(
 extern "C" int gsplat_blend_fwd(
     const void* ptab, const void* inst_gauss, const void* bounds,
     int num_tiles, int tiles_x, int tile_size, int width, int height,
-    int chunk, float alpha_min, float alpha_max, float early_eps,
-    int with_labels, void* rgb, void* trans, void* best_w, void* label,
-    void* stream) {
+    int chunk, int row_stride, int row_phase, int col_stride, int col_phase,
+    float alpha_min, float alpha_max, float early_eps, int with_labels,
+    void* rgb, void* trans, void* best_w, void* label, void* stream) {
   if (num_tiles > 0) {
     auto kernel = with_labels ? blend_fwd_kernel<true>
                               : blend_fwd_kernel<false>;
@@ -256,7 +267,8 @@ extern "C" int gsplat_blend_fwd(
         static_cast<const float*>(ptab),
         static_cast<const int*>(inst_gauss),
         static_cast<const int*>(bounds), tiles_x, tile_size, width, height,
-        chunk, alpha_min, alpha_max, early_eps, static_cast<float*>(rgb),
+        chunk, row_stride, row_phase, col_stride, col_phase, alpha_min,
+        alpha_max, early_eps, static_cast<float*>(rgb),
         static_cast<float*>(trans), static_cast<float*>(best_w),
         static_cast<int*>(label));
   }

@@ -25,6 +25,14 @@
 // offsets and depth keys come from the wrapper (render/tiles.py::enum_keys);
 // the stable sort runs outside.
 //
+// The interleaved tile lattice of the sharded render: the block's tiles are
+// a shard's local ones, global row row_phase + trow * row_stride and column
+// col_phase + tcol * col_stride. The key packs the local tile; the rectangle
+// test takes the global tile's origin, as the TPU kernel's trow_g / tcol_g
+// (tiles.py:150-151). At strides of 1 and phases of 0 both are the tile of
+// the single-device render and the keys are those of the kernel before the
+// lattice, bit for bit.
+//
 // Bound on the card: bytes. Each gaussian's 12 inputs (48 B) are read once
 // and each slot writes 8 B; the ~54 f32 instructions of the rectangle test
 // per slot are far below the f32 rate. At render sizes the kernel is tens of
@@ -88,7 +96,8 @@ __global__ void __launch_bounds__(kThreads) enum_keys_kernel(
     const int* __restrict__ bx0, const int* __restrict__ by0,
     const int* __restrict__ bw, const int* __restrict__ cnt,
     const int* __restrict__ offsets, const int* __restrict__ qd, int n,
-    int tiles_x, int num_tiles, float ts, int db, int* __restrict__ keys,
+    int tiles_x, int num_tiles, float ts, int db, int row_stride,
+    int row_phase, int col_stride, int col_phase, int* __restrict__ keys,
     int* __restrict__ gauss) {
   __shared__ Block s;
   const int g0 = blockIdx.x * kThreads;
@@ -128,9 +137,10 @@ __global__ void __launch_bounds__(kThreads) enum_keys_kernel(
     const int r = local / w;
     const int trow = s.y0[j] + r;
     const int tcol = s.x0[j] + (local - r * w);
-    const float mq = rect_min_q(s.u[j], s.v[j], s.ca[j], s.cb[j], s.cc[j],
-                                static_cast<float>(tcol) * ts,
-                                static_cast<float>(trow) * ts, ts);
+    const float mq = rect_min_q(
+        s.u[j], s.v[j], s.ca[j], s.cb[j], s.cc[j],
+        static_cast<float>(col_phase + tcol * col_stride) * ts,
+        static_cast<float>(row_phase + trow * row_stride) * ts, ts);
     const int tile = (mq <= s.qm[j]) ? trow * tiles_x + tcol : num_tiles;
     keys[slot] = (tile << db) | s.qd[j];
     gauss[slot] = g0 + j;
@@ -143,8 +153,9 @@ extern "C" int gsplat_enum_keys(
     const void* u, const void* v, const void* ca, const void* cb,
     const void* cc, const void* qmax, const void* bx0, const void* by0,
     const void* bw, const void* cnt, const void* offsets, const void* qd,
-    int n, int tiles_x, int num_tiles, float ts, int db, void* keys,
-    void* gauss, void* stream) {
+    int n, int tiles_x, int num_tiles, float ts, int db, int row_stride,
+    int row_phase, int col_stride, int col_phase, void* keys, void* gauss,
+    void* stream) {
   if (n > 0) {
     enum_keys_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
@@ -154,8 +165,8 @@ extern "C" int gsplat_enum_keys(
         static_cast<const int*>(bx0), static_cast<const int*>(by0),
         static_cast<const int*>(bw), static_cast<const int*>(cnt),
         static_cast<const int*>(offsets), static_cast<const int*>(qd), n,
-        tiles_x, num_tiles, ts, db, static_cast<int*>(keys),
-        static_cast<int*>(gauss));
+        tiles_x, num_tiles, ts, db, row_stride, row_phase, col_stride,
+        col_phase, static_cast<int*>(keys), static_cast<int*>(gauss));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,15 @@
 """ctypes bindings for the native C++ data path (``native/gsplat_native.cpp``).
 
-Counterpart of ``gsplat_tpu.io.native`` over the same source: fast gaussian
+Counterpart of ``gsplat_tpu.io.native`` over a copy of the same source that
+ships with the package (``gsplat_tpu_torch/native/gsplat_native.cpp``,
+byte-equal to the repository's ``native/gsplat_native.cpp``): fast gaussian
 PLY parsing, importance ordering and ``.splat`` packing, multithreaded C++
 in place of the reference's hot JS loops (gaussians_selection.js:464-585).
 
-The library is built from ``native/gsplat_native.cpp`` with
-``native/Makefile``'s flags into ``build/native/`` at the repo root, at
-first use (never at import), and ``native/`` itself is left as it is. The
+The library is built from that copy with ``native/Makefile``'s flags into
+``native/`` under ``_kernels.BUILD_ROOT`` (the repository's ``build/`` in a
+checkout, a user cache when the package is installed), at first use (never
+at import); no source directory is written. The
 flags hold ``-march=native``, so a library is only for a machine with the
 same instruction set: its name hashes the source, the flags and the
 compiler's description of the target ``-march=native`` selects here, and a
@@ -31,11 +34,11 @@ from typing import Optional
 
 import numpy as np
 
+from gsplat_tpu_torch._kernels import BUILD_ROOT
 from gsplat_tpu_torch.scene import DeviceLike, GaussianScene, scene_from_numpy
 
-REPO = Path(__file__).resolve().parents[2]
-SOURCE = REPO / "native" / "gsplat_native.cpp"
-BUILD_DIR = REPO / "build" / "native"
+SOURCE = Path(__file__).resolve().parents[1] / "native" / "gsplat_native.cpp"
+BUILD_DIR = BUILD_ROOT / "native"
 # native/Makefile:2-3, CXXFLAGS then LDFLAGS
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
              "-Wextra", "-shared", "-pthread")

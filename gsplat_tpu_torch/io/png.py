@@ -7,9 +7,9 @@ on may lack.
   zlib-compressed rows (each with filter type 0, None) and IEND, with their
   CRCs.
 - :func:`decode_png` reads what ``np.asarray(Image.open(p).convert("RGB"))``
-  reads from an 8-bit PNG of colour type 0, 2, 3, 4 or 6 that is not
-  interlaced: all five row filters, the palette looked up, alpha dropped,
-  grey replicated, every CRC checked.
+  reads from a PNG of any colour type and bit depth, Adam7-interlaced or
+  not: all five row filters, sub-byte samples unpacked, the palette looked
+  up, alpha dropped, grey replicated, every CRC checked.
 - :func:`resize_rgb` is ``Image.resize((w, h))`` of an RGB image under
   Pillow's default filter (BICUBIC), bit for bit: the fixed-point two-pass
   resampler of Pillow's ``Resample.c``.
@@ -26,8 +26,14 @@ import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
-# channels of each 8-bit colour type: grey, RGB, palette, grey+alpha, RGBA
+# channels of each colour type: grey, RGB, palette, grey+alpha, RGBA
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# the bit depths each colour type allows (PNG spec 11.2.2)
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7's passes: (x0, y0, dx, dy) of each pass's sub-image
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -69,7 +75,9 @@ def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
 
 
 def _unfilter(data: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
-    """[H, W, bpp] uint8 pixels of the decompressed scanlines ``data``.
+    """[H, W, bpp] uint8 filter units of the decompressed scanlines
+    ``data``: W units of ``bpp`` bytes a row (a pixel's bytes at 8 and 16
+    bits; single bytes, ``bpp`` 1, below 8 bits, as the filters take them).
 
     Rows filtered None, Sub or Up depend on no other byte of their own row
     but the one ``bpp`` before, so each takes one vectorised step. Average
@@ -124,11 +132,58 @@ def _name(source) -> str:
     return "<bytes>" if isinstance(source, (bytes, bytearray)) else str(source)
 
 
+def _samples(data: np.ndarray, h: int, w: int, depth: int,
+             channels: int) -> np.ndarray:
+    """[H, W, channels] samples (uint8, or uint16 at 16 bits) of one
+    non-interlaced image's decompressed scanlines ``data``."""
+    if depth >= 8:
+        bpp = channels * depth // 8
+        px = _unfilter(data, h, w, bpp)
+        if depth == 8:
+            return px
+        be = px.reshape(h, w, channels, 2).astype(np.uint16)
+        return be[..., 0] << 8 | be[..., 1]
+    stride = -(-w * channels * depth // 8)
+    rows = _unfilter(data, h, stride, 1)[..., 0]
+    bits = np.unpackbits(rows, axis=1)[:, :w * channels * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    vals = (bits.reshape(h, w * channels, depth) * weights).sum(
+        axis=2, dtype=np.uint8)
+    return vals.reshape(h, w, channels)
+
+
+def _interlaced(data: np.ndarray, h: int, w: int, depth: int,
+                channels: int) -> np.ndarray:
+    """Samples of an Adam7-interlaced image: each pass a sub-image with its
+    own scanlines and filters, placed on its lattice."""
+    out = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    off = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        n = ph * (1 + -(-pw * channels * depth // 8))
+        out[y0::dy, x0::dx] = _samples(data[off:off + n], ph, pw, depth,
+                                       channels)
+        off += n
+    if off != data.size:
+        raise ValueError(f"image data holds {data.size} bytes where {off} "
+                         "were expected")
+    return out
+
+
+def _name(source) -> str:
+    return "<bytes>" if isinstance(source, (bytes, bytearray)) else str(source)
+
+
 def decode_png(path_or_bytes: Union[str, os.PathLike, bytes]) -> np.ndarray:
     """[H, W, 3] uint8 pixels of a PNG, as ``Image.open(p).convert("RGB")``
-    gives them: 8-bit grey, RGB, palette, grey+alpha and RGBA, not
-    interlaced. Other bit depths and Adam7 interlacing raise a
-    ``ValueError`` naming the file; so do a bad CRC and truncated data."""
+    gives them, for every colour type and bit depth the format allows,
+    interlaced or not. Pillow's conversions: grey at 1, 2 and 4 bits scaled
+    to 8 (x 255, 85, 17), 16-bit grey clipped at 255, the high byte of
+    every other 16-bit sample, palette indices looked up (past the palette:
+    black). A bad CRC, truncated data or a depth the colour type does not
+    allow raises a ``ValueError`` naming the file."""
     name = _name(path_or_bytes)
     if isinstance(path_or_bytes, (bytes, bytearray)):
         data = bytes(path_or_bytes)
@@ -160,14 +215,19 @@ def decode_png(path_or_bytes: Union[str, os.PathLike, bytes]) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = header
     if ctype not in _CHANNELS:
         raise ValueError(f"{name}: colour type {ctype} does not exist")
-    if depth != 8:
-        raise ValueError(f"{name}: bit depth {depth} is not supported (8-bit "
-                         "PNGs only; 1, 2, 4 and 16 bits are not read)")
-    if interlace:
-        raise ValueError(f"{name}: Adam7 interlacing is not supported")
-    bpp = _CHANNELS[ctype]
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"{name}: bit depth {depth} is not allowed for "
+                         f"colour type {ctype}")
+    if interlace not in (0, 1):
+        raise ValueError(f"{name}: interlace method {interlace} does not "
+                         "exist")
+    channels = _CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    px = _unfilter(raw, h, w, bpp)
+    unpack = _interlaced if interlace else _samples
+    try:
+        px = unpack(raw, h, w, depth, channels)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{name}: palette image without PLTE")
@@ -176,6 +236,12 @@ def decode_png(path_or_bytes: Union[str, os.PathLike, bytes]) -> np.ndarray:
         full = np.zeros((256, 3), np.uint8)
         full[:len(palette)] = palette[:256]
         return full[px[..., 0]]
+    if depth == 16:
+        # Pillow opens 16-bit grey as I;16 and clips it into L; every other
+        # 16-bit mode keeps the high byte
+        px = (np.minimum(px, 255) if ctype == 0 else px >> 8).astype(np.uint8)
+    elif depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))
     if ctype in (0, 4):
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])

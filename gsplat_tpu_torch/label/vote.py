@@ -21,6 +21,14 @@ gather ``seg[v, ys, xs]`` and the [N, num_classes + 1] int32 histogram takes
 one ``index_add_`` per view (integer adds, exact in any order). No [V, N, C]
 or [N, SW] one-hot exists. The vote is plain torch on both devices; the
 occlusion-aware path's visibility render runs kernel B5 once per view.
+
+With ``mesh=`` (``parallel/mesh.py``), as ``gsplat_tpu/label/vote.py:196-230``
+and ``:238-320`` shard them: the vote splits the views over ``host`` and
+the gaussians over ``chip`` (views padded with zero-size cameras, which
+see nothing) and sums the histograms over ``host``, within a process and
+by an all-reduce across processes; integer counts, so the votes are
+exact. The visibility pass splits the views over every shard, each shard
+rendering its views of the whole scene (kernel B5).
 """
 
 from __future__ import annotations
@@ -32,16 +40,16 @@ import torch
 
 from gsplat_tpu_torch.config import DEFAULT, UNLABELED
 from gsplat_tpu_torch.io.cameras import Camera
+from gsplat_tpu_torch.parallel.mesh import (Mesh, all_gather_shards,
+                                            all_reduce_sum, on_device)
 from gsplat_tpu_torch.render.api import _render_vis_impl
 from gsplat_tpu_torch.render.projection import CameraParams
 from gsplat_tpu_torch.scene import DeviceLike, GaussianScene, resolve_device
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the sharded vote comes with the port's multi-GPU slice "
-            "(parallel/mesh.py)")
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError("mesh must be a gsplat_tpu_torch.parallel.mesh.Mesh")
 
 
 def project_centers(
@@ -137,6 +145,44 @@ def _vote_histogram(means: torch.Tensor, cams: Dict[str, torch.Tensor],
     return votes.view(n, nbins)
 
 
+def _vote_sharded(means: torch.Tensor, cams: Dict[str, np.ndarray],
+                  seg_maps: np.ndarray, num_classes: int, mesh: Mesh,
+                  vis: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`_vote_histogram` with views over the mesh's ``host`` axis and
+    gaussians over ``chip``, summed over ``host`` (module docstring); the
+    [N, C + 1] votes on ``mesh.home``."""
+    n_host, n_chip = mesh.dims
+    n, v = means.shape[0], seg_maps.shape[0]
+    ng, nv = -(-n // n_chip), -(-v // n_host)
+    means = torch.cat([means, means.new_zeros(ng * n_chip - n, 3)])
+    if vis is not None:
+        vis = torch.cat([vis, vis.new_zeros(v, ng * n_chip - n)], dim=1)
+    pad = nv * n_host - v
+    if pad:
+        seg_maps = np.concatenate(
+            [seg_maps, np.full((pad,) + seg_maps.shape[1:], -1, np.int32)])
+        cams = {k: np.concatenate([a, np.repeat(a[-1:], pad, 0)])
+                for k, a in cams.items()}
+        cams["width"][v:] = 0.0
+        cams["height"][v:] = 0.0
+        if vis is not None:
+            vis = torch.cat([vis, vis.new_zeros(pad, vis.shape[1])])
+    votes = torch.zeros(ng * n_chip, num_classes + 1, dtype=torch.int32,
+                        device=mesh.home)
+    for s, dev in zip(mesh.local, mesh.devices):
+        h, c = divmod(s, n_chip)
+        views, rows = slice(h * nv, (h + 1) * nv), slice(c * ng, (c + 1) * ng)
+        with on_device(dev):
+            part = _vote_histogram(
+                means[rows].to(dev),
+                {k: torch.from_numpy(a[views]).to(dev)
+                 for k, a in cams.items()},
+                _seg_tensor(seg_maps[views], dev), num_classes,
+                vis=None if vis is None else vis[views, rows].to(dev))
+        votes[rows] += part.to(mesh.home)
+    return all_reduce_sum(votes, mesh)[:n]
+
+
 def votes_to_labels(votes: torch.Tensor) -> torch.Tensor:
     """argmax over the histogram (the first maximum wins); never-visible ->
     UNLABELED (-1)."""
@@ -164,13 +210,19 @@ def assign_labels(
     card unless the caller names another).
 
     ``initial_votes`` resumes a partial sweep: pass the saved [N, C + 1]
-    histogram and only the remaining cameras/seg_maps. ``mesh`` (the sharded
-    vote) is not ported yet and raises."""
-    _no_mesh(mesh)
+    histogram and only the remaining cameras/seg_maps. With ``mesh`` the
+    vote is sharded (module docstring); the labels are the same."""
+    _check_mesh(mesh)
     device = resolve_device(device)
-    votes = _vote_histogram(scene.means.to(device),
-                            _camera_tensors(cameras, device),
-                            _seg_tensor(seg_maps, device), num_classes)
+    if mesh is None:
+        votes = _vote_histogram(scene.means.to(device),
+                                _camera_tensors(cameras, device),
+                                _seg_tensor(seg_maps, device), num_classes)
+    else:
+        votes = _vote_sharded(scene.means.to(mesh.home),
+                              camera_batch(cameras),
+                              np.asarray(seg_maps, np.int32), num_classes,
+                              mesh).to(device)
     if initial_votes is not None:
         votes = votes + torch.as_tensor(np.asarray(initial_votes),
                                         device=device).to(votes.dtype)
@@ -209,10 +261,25 @@ def visibility_masks(
     threshold).
 
     Views are grouped by (width, height), as in the JAX package, and each
-    group's views are rendered in turn. ``mesh`` raises."""
-    _no_mesh(mesh)
+    group's views are rendered in turn. With ``mesh`` the views are split
+    over every shard (padded with the last view), each rendering its views
+    of the whole scene, and gathered."""
+    _check_mesh(mesh)
     cfg = cfg or DEFAULT
     device = resolve_device(device)
+    if mesh is not None:
+        per = -(-len(cameras) // mesh.size)
+        padded = list(cameras) + [cameras[-1]] * (per * mesh.size
+                                                  - len(cameras))
+        rows = []
+        for s, dev in zip(mesh.local, mesh.devices):
+            with on_device(dev):
+                rows.append(visibility_masks(
+                    scene, padded[s * per:(s + 1) * per],
+                    visibility_threshold=visibility_threshold, cfg=cfg,
+                    device=dev))
+        vis = torch.cat(all_gather_shards(rows, mesh))[:len(cameras)]
+        return vis.to(device)
     scene = scene.to(device)
     groups: Dict[Tuple[int, int], list] = {}
     for i, c in enumerate(cameras):
@@ -244,9 +311,21 @@ def assign_labels_visible(
     pipeline (kernel B5) and a gaussian only votes when its max per-pixel
     blend weight reaches ``visibility_threshold``, i.e. when it visibly
     contributes to that view. The vote itself is :func:`assign_labels`'
-    histogram with the per-view visibility as an extra mask."""
-    _no_mesh(mesh)
+    histogram with the per-view visibility as an extra mask. With ``mesh``
+    both the visibility pass and the vote are sharded (module
+    docstring)."""
+    _check_mesh(mesh)
     device = resolve_device(device)
+    if mesh is not None:
+        vis = visibility_masks(scene, cameras,
+                               visibility_threshold=visibility_threshold,
+                               cfg=cfg, mesh=mesh, device=mesh.home)
+        votes = _vote_sharded(scene.means.to(mesh.home),
+                              camera_batch(cameras),
+                              np.asarray(seg_maps, np.int32), num_classes,
+                              mesh, vis=vis).to(device)
+        labels = votes_to_labels(votes)
+        return (labels, votes) if return_votes else labels
     scene = scene.to(device)
     vis = visibility_masks(scene, cameras,
                            visibility_threshold=visibility_threshold,

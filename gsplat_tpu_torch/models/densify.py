@@ -12,6 +12,14 @@ as ``jnp.argsort`` is, so ties (everywhere in the keep mask and among the
 The split noise is drawn from a ``torch.Generator`` in place of a JAX key;
 ``noise`` overrides the draw, so a test can hand both packages the same
 numbers.
+
+Sharded buffers (``parallel/mesh.py::Sharded``, the sharded train steps'
+state): the JAX package runs ``densify_and_prune`` under GSPMD on them
+(``gsplat_tpu/models/trainer.py:406-412``). The port gathers the [C]
+buffers, runs the same single-device step on every process (with the same
+``noise``, or a generator seeded alike) and keeps each shard's slice, at
+the densify cadence; the written mask comes back sharded, for
+``trainer.zero_adam_rows``. ``reset_opacities`` works shard by shard.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 
 from gsplat_tpu_torch.config import NO_SELECTION
 from gsplat_tpu_torch.models.trainer import SceneParams
+from gsplat_tpu_torch.parallel.mesh import on_whole, per_shard, sum_shards
 from gsplat_tpu_torch.render.projection import quat_to_rotmat
 from gsplat_tpu_torch.scene import DeviceLike, resolve_device
 
@@ -85,7 +94,8 @@ def pad_to_capacity(params: SceneParams, labels: torch.Tensor, capacity: int
 
 
 def num_alive(params: SceneParams) -> torch.Tensor:
-    return torch.sum((params.opacities > DEAD_LOGIT + 1.0).to(torch.int32))
+    return sum_shards(per_shard(lambda p: torch.sum(
+        (p.opacities > DEAD_LOGIT + 1.0).to(torch.int32)), params))
 
 
 def _f32_log(x: float) -> float:
@@ -112,6 +122,15 @@ def densify_and_prune(
     not given, and parent and child shrink their scales). Returns
     (params, labels, zeroed stats, rewritten-slot mask); the caller zeroes
     the optimizer moments at the mask (``trainer.zero_adam_rows``)."""
+    # sharded buffers are gathered, densified whole and sharded again
+    # (module docstring)
+    return on_whole(lambda p, lab, st: _densify_whole(
+        p, lab, st, generator, scene_extent, cfg, noise), params, labels,
+        stats)
+
+
+def _densify_whole(params, labels, stats, generator, scene_extent, cfg,
+                   noise):
     c = params.means.shape[0]
     dev = params.means.device
     opac = torch.sigmoid(params.opacities)
@@ -186,9 +205,13 @@ def reset_opacities(params: SceneParams, value: float = 0.01
     can reconsider them). Returns (params, changed mask); the caller zeroes
     the opacity Adam moments at changed rows
     (``trainer.zero_adam_rows(..., fields=("opacities",))``)."""
-    alive = params.opacities > DEAD_LOGIT + 1.0
     logit = _f32_log(value / (1.0 - value))
-    changed = alive & (params.opacities > logit)
-    new = torch.where(alive, torch.clamp_max(params.opacities, logit),
-                      params.opacities)
-    return params._replace(opacities=new), changed
+
+    def rows(params: SceneParams):
+        alive = params.opacities > DEAD_LOGIT + 1.0
+        changed = alive & (params.opacities > logit)
+        new = torch.where(alive, torch.clamp_max(params.opacities, logit),
+                          params.opacities)
+        return params._replace(opacities=new), changed
+
+    return per_shard(rows, params)

@@ -11,6 +11,16 @@ The optimizer is a small hand-written Adam over the five parameter tensors,
 step for step the JAX package's ``optax.chain(scale_by_adam(), per-field
 LR_SCALES, scale_by_schedule(sched))``: its moments are plain tensors, so
 ``zero_adam_rows`` is a masked write.
+
+With ``mesh=`` the step builders render through
+``parallel/render_sharded.py`` (gaussians over the mesh's shards,
+interleaved tiles, the overlap-culled exchange with the gradient's
+return), as ``gsplat_tpu/models/trainer.py:183-196`` does. The state is
+then sharded (``parallel/mesh.py::Sharded``): ``init_state`` of a
+``ShardedScene`` keeps each shard's parameters and Adam moments on its
+shard's device, the labels are the scene's ``.labels`` and the densify
+statistics ``shard_rows(DensifyStats.zeros(C), mesh)``. Adam works row by
+row, so the update needs no collective.
 """
 
 from __future__ import annotations
@@ -22,6 +32,9 @@ import torch
 
 from gsplat_tpu_torch.config import Config, DEFAULT
 from gsplat_tpu_torch.models import losses
+from gsplat_tpu_torch.parallel.mesh import (Mesh, Sharded, ShardedScene,
+                                            per_shard)
+from gsplat_tpu_torch.parallel.render_sharded import render_sharded
 from gsplat_tpu_torch.render.api import _render_impl
 from gsplat_tpu_torch.render.projection import CameraParams
 from gsplat_tpu_torch.scene import DeviceLike, GaussianScene, resolve_device
@@ -79,8 +92,9 @@ class ScaledAdam(NamedTuple):
     decay_steps: Optional[int] = None
 
     def init(self, params: SceneParams) -> AdamState:
-        def zeros():
-            return SceneParams(*(torch.zeros_like(p) for p in params))
+        """Zero moments (sharded as ``params`` is)."""
+        zeros = lambda: per_shard(lambda p: SceneParams(
+            *(torch.zeros_like(t) for t in p)), params)
         return AdamState(0, zeros(), zeros())
 
     def step_size(self, count: int) -> float:
@@ -97,22 +111,28 @@ class ScaledAdam(NamedTuple):
     @torch.no_grad()
     def update(self, grads: SceneParams, state: AdamState,
                params: SceneParams) -> Tuple[SceneParams, AdamState]:
-        """(new params, new state) after one update with ``grads``."""
+        """(new params, new state) after one update with ``grads``; shard
+        by shard when they are sharded (Adam is per row)."""
         count_inc = state.count + 1
         bc1 = float(1 - np.float32(ADAM_B1) ** np.float32(count_inc))
         bc2 = float(1 - np.float32(ADAM_B2) ** np.float32(count_inc))
         step = self.step_size(state.count)
-        mus, nus, news = [], [], []
-        for f, g, m, v, p in zip(SceneParams._fields, grads, state.mu,
-                                 state.nu, params):
-            m = (1 - ADAM_B1) * g + ADAM_B1 * m
-            v = (1 - ADAM_B2) * (g * g) + ADAM_B2 * v
-            u = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
-            news.append(p + step * (u * LR_SCALES[f]))
-            mus.append(m)
-            nus.append(v)
-        return SceneParams(*news), AdamState(count_inc, SceneParams(*mus),
-                                             SceneParams(*nus))
+
+        def rows(params, grads, mu, nu):
+            mus, nus, news = [], [], []
+            for f, g, m, v, p in zip(SceneParams._fields, grads, mu, nu,
+                                     params):
+                m = (1 - ADAM_B1) * g + ADAM_B1 * m
+                v = (1 - ADAM_B2) * (g * g) + ADAM_B2 * v
+                u = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
+                news.append(p + step * (u * LR_SCALES[f]))
+                mus.append(m)
+                nus.append(v)
+            return (SceneParams(*news), SceneParams(*mus),
+                    SceneParams(*nus))
+
+        news, mus, nus = per_shard(rows, params, grads, state.mu, state.nu)
+        return news, AdamState(count_inc, mus, nus)
 
 
 def scaled_adam(lr: float = 1e-2, *, lr_final: Optional[float] = None,
@@ -125,7 +145,9 @@ def scaled_adam(lr: float = 1e-2, *, lr_final: Optional[float] = None,
 def init_state(scene: GaussianScene, lr: float = 1e-2,
                lr_final: Optional[float] = None,
                decay_steps: Optional[int] = None) -> TrainState:
-    params = SceneParams.from_scene(scene)
+    """A fresh state of ``scene``'s parameters, sharded if the scene is (a
+    ``ShardedScene``)."""
+    params = per_shard(SceneParams.from_scene, scene)
     opt = scaled_adam(lr, lr_final=lr_final, decay_steps=decay_steps)
     return TrainState(params, opt.init(params), 0)
 
@@ -155,10 +177,11 @@ def zero_adam_rows(opt_state: AdamState, mask: torch.Tensor,
     ``("opacities",)`` after an opacity reset).
 
     Used after ``densify.densify_and_prune`` / ``densify.reset_opacities``:
-    rewritten slots must not inherit the previous occupant's moments."""
+    rewritten slots must not inherit the previous occupant's moments. A
+    sharded state takes the sharded mask those return."""
     names = SceneParams._fields if fields is None else tuple(fields)
 
-    def z(moments: SceneParams) -> SceneParams:
+    def z(mask: torch.Tensor, moments: SceneParams) -> SceneParams:
         out = {}
         for f in names:
             t = getattr(moments, f)
@@ -166,7 +189,9 @@ def zero_adam_rows(opt_state: AdamState, mask: torch.Tensor,
             out[f] = torch.where(m, torch.zeros((), device=t.device), t)
         return moments._replace(**out)
 
-    return opt_state._replace(mu=z(opt_state.mu), nu=z(opt_state.nu))
+    mu, nu = per_shard(lambda m, a, b: (z(m, a), z(m, b)), mask,
+                       opt_state.mu, opt_state.nu)
+    return opt_state._replace(mu=mu, nu=nu)
 
 
 def l2_loss(image: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -179,11 +204,9 @@ def get_loss_fn(name: str):
             "dssim_l1": losses.dssim_l1_loss}[name]
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the sharded train steps come with the port's multi-GPU "
-            "slice (parallel/render_sharded.py)")
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError("mesh must be a gsplat_tpu_torch.parallel.mesh.Mesh")
 
 
 def _view(cams: CameraParams, i: int) -> CameraParams:
@@ -191,32 +214,49 @@ def _view(cams: CameraParams, i: int) -> CameraParams:
 
 
 def _grads(params: SceneParams, labels, views, photometric, *, width,
-           height, cfg) -> Tuple[SceneParams, torch.Tensor, torch.Tensor]:
+           height, cfg, mesh) -> Tuple[SceneParams, torch.Tensor,
+                                       torch.Tensor]:
     """(grads, mean loss, max num_dropped) over ``views``, a list of
     (cam, target, bg). Each view is rendered and differentiated on its own
-    and the gradients summed, so one view's graph is alive at a time."""
-    leaves = [p.detach().requires_grad_(True) for p in params]
-    scene = SceneParams(*leaves).to_scene(labels)
-    grads = [torch.zeros_like(p) for p in leaves]
-    total = torch.zeros((), device=leaves[0].device)
-    dropped = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
+    and the gradients summed, so one view's graph is alive at a time. With
+    ``mesh`` the parameters and labels are sharded and so are the grads;
+    the loss is whole on ``mesh.home``, the same on every process."""
+    shards = list(params) if mesh is not None else [params]
+    labs = list(labels) if mesh is not None else [labels]
+    leaves = [SceneParams(*(p.detach().requires_grad_(True) for p in sp))
+              for sp in shards]
+    scenes = [lv.to_scene(lab) for lv, lab in zip(leaves, labs)]
+    flat = [p for lv in leaves for p in lv]
+    grads = [torch.zeros_like(p) for p in flat]
+    home = flat[0].device
+    total = torch.zeros((), device=home)
+    dropped = torch.zeros((), dtype=torch.int32, device=home)
     nv = len(views)
     for cam, target, bg in views:
-        out = _render_impl(scene, cam, bg, width=width, height=height,
-                           cfg=cfg, with_labels=False)
-        img = out["image"]
+        if mesh is None:
+            out = _render_impl(scenes[0], cam, bg, width=width,
+                               height=height, cfg=cfg, with_labels=False)
+            img, nd = out["image"], out["num_dropped"]
+        else:
+            img, nd = render_sharded(
+                ShardedScene(scenes, mesh), cam, mesh, width=width,
+                height=height, cfg=cfg, background=bg, with_dropped=True)
         h = min(img.shape[0], target.shape[0])
         loss = photometric(img[:h], target[:h])
-        gs = torch.autograd.grad(loss / nv, leaves)
+        gs = torch.autograd.grad(loss / nv, flat)
         for acc, g in zip(grads, gs):
             acc += g
         total = total + loss.detach()
-        dropped = torch.maximum(dropped, out["num_dropped"])
-    return SceneParams(*grads), total / nv, dropped
+        dropped = torch.maximum(dropped, nd)
+    k = len(SceneParams._fields)
+    out = [SceneParams(*grads[i * k:(i + 1) * k]) for i in range(len(leaves))]
+    return (Sharded(out, mesh) if mesh is not None else out[0],
+            total / nv, dropped)
 
 
 def _make_step(width, height, cfg, lr, lr_final, decay_steps, loss,
-               multiview: bool, adaptive: bool):
+               multiview: bool, adaptive: bool, mesh):
+    _check_mesh(mesh)
     opt = scaled_adam(lr, lr_final=lr_final, decay_steps=decay_steps)
     photometric = get_loss_fn(loss)
 
@@ -229,14 +269,16 @@ def _make_step(width, height, cfg, lr, lr_final, decay_steps, loss,
     def run(state: TrainState, labels, cams, targets, bg):
         grads, loss_v, nd = _grads(state.params, labels,
                                    views_of(cams, targets, bg), photometric,
-                                   width=width, height=height, cfg=cfg)
+                                   width=width, height=height, cfg=cfg,
+                                   mesh=mesh)
         params, opt_state = opt.update(grads, state.opt_state, state.params)
         return TrainState(params, opt_state, state.step + 1), grads, loss_v, nd
 
     if adaptive:
         def train_step(state: TrainState, stats, labels, cams, targets, bg):
             state, grads, loss_v, nd = run(state, labels, cams, targets, bg)
-            return state, stats.update(grads), loss_v, nd
+            return (state, per_shard(lambda s, g: s.update(g), stats, grads),
+                    loss_v, nd)
     else:
         def train_step(state: TrainState, labels, cams, targets, bg):
             state, _, loss_v, nd = run(state, labels, cams, targets, bg)
@@ -263,15 +305,16 @@ def make_train_step(
     """Build a train step:
     (state, labels, cam, target, bg) -> (state, loss, num_dropped).
 
-    The budget arguments and ``interpret`` are accepted and ignored: the
-    port sizes its buffers from the exact instance count, so
-    ``num_dropped`` is 0. ``mesh`` is not supported yet."""
+    The budget arguments, ``exchange_capacity`` and ``interpret`` are
+    accepted and ignored: the port sizes its buffers from exact counts, so
+    ``num_dropped`` is 0. With ``mesh`` the render is the sharded one and
+    the state sharded (module docstring); ``cam`` and ``target`` lie on
+    ``mesh.home``."""
     del budget, kernel_budget, num_windows, budget_per_device, interpret
     del exchange_capacity
-    _no_mesh(mesh)
     width, height = camera_static
     return _make_step(width, height, cfg, lr, lr_final, decay_steps, loss,
-                      multiview=False, adaptive=False)
+                      multiview=False, adaptive=False, mesh=mesh)
 
 
 def make_multiview_train_step(
@@ -296,10 +339,9 @@ def make_multiview_train_step(
     num_dropped is the max over the views."""
     del budget, kernel_budget, num_windows, budget_per_device, interpret
     del exchange_capacity
-    _no_mesh(mesh)
     width, height = camera_static
     return _make_step(width, height, cfg, lr, lr_final, decay_steps, loss,
-                      multiview=True, adaptive=False)
+                      multiview=True, adaptive=False, mesh=mesh)
 
 
 def make_adaptive_multiview_train_step(
@@ -324,10 +366,9 @@ def make_adaptive_multiview_train_step(
     -> (state, stats, loss, num_dropped)."""
     del budget, kernel_budget, num_windows, budget_per_device, interpret
     del exchange_capacity
-    _no_mesh(mesh)
     width, height = camera_static
     return _make_step(width, height, cfg, lr, lr_final, decay_steps, loss,
-                      multiview=True, adaptive=True)
+                      multiview=True, adaptive=True, mesh=mesh)
 
 
 def make_adaptive_train_step(
@@ -352,10 +393,9 @@ def make_adaptive_train_step(
     steps on the host schedule; the scene lives in fixed-capacity buffers."""
     del budget, kernel_budget, num_windows, budget_per_device, interpret
     del exchange_capacity
-    _no_mesh(mesh)
     width, height = camera_static
     return _make_step(width, height, cfg, lr, lr_final, decay_steps, loss,
-                      multiview=False, adaptive=True)
+                      multiview=False, adaptive=True, mesh=mesh)
 
 
 def stack_cameras(cams) -> CameraParams:

@@ -28,7 +28,8 @@ from gsplat_tpu_torch.io.cameras import Camera
 from gsplat_tpu_torch.render import blend, blend_dense
 from gsplat_tpu_torch.render.projection import (CameraParams, Projected,
                                                 project, tile_grid)
-from gsplat_tpu_torch.render.tiles import (TileBinning, bin_tiles,
+from gsplat_tpu_torch.render.tiles import (FULL, Lattice, TileBinning,
+                                           bin_tiles,
                                            count_instances,
                                            count_instances_tight,
                                            depth_qkeys)
@@ -51,7 +52,9 @@ def pack_table(proj: Projected, labels: torch.Tensor) -> torch.Tensor:
 
 
 class BlendSettings(NamedTuple):
-    """The blend kernels' static arguments."""
+    """The blend kernels' static arguments. The lattice is the sharded
+    render's (``render/tiles.py::Lattice``); the default is the whole
+    grid."""
 
     tiles_x: int
     tiles_y: int
@@ -62,6 +65,7 @@ class BlendSettings(NamedTuple):
     alpha_min: float
     alpha_max: float
     early_eps: float
+    lattice: Lattice = FULL
 
 
 def enumeration_rows(drows: torch.Tensor, je_sorted: torch.Tensor

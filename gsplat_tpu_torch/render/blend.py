@@ -23,6 +23,12 @@ suffix is S = D - p and dalpha = T (c.dC) - S / (1 - alpha).
 B1, B5 and B2 pass over the instance-pixel pairs that certainly fail the
 alpha cut (``csrc/blend_cull.cuh``); :func:`_cull_q_cut` and
 :func:`_cull_rect_skip` mirror that test in plain PyTorch for the tests.
+
+B1 and B2 take the sharded render's interleaved tile lattice
+(``render/tiles.py::Lattice``): local tile (i, j) of the shard's
+[tiles_y * ts, tiles_x * ts] image blends the pixels of global tile
+(row_phase + i * row_stride, col_phase + j * col_stride). At the default
+lattice they blend the single-device grid.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 
 from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.config import UNLABELED
+from gsplat_tpu_torch.render.tiles import FULL, Lattice
 
 # Columns of the [N, 16] per-gaussian parameter table (render/api.py
 # pack_table). P_GID carries the gaussian index as f32 (exact for N < 2^24).
@@ -139,10 +146,20 @@ def _check_stream(name, ptab, inst_gauss, tile_bounds, *, tiles_x, tiles_y,
         raise ValueError("the tile grid does not cover the image")
 
 
+def _tile_origins(tiles_x: int, tiles_y: int, tile_size: int,
+                  lattice: Lattice, device):
+    """[T] f32 pixel origins (x, y) of each local tile's global tile."""
+    tid = torch.arange(tiles_x * tiles_y, device=device)
+    row_stride, row_phase, col_stride, col_phase = lattice
+    x0 = (col_phase + (tid % tiles_x) * col_stride) * tile_size
+    y0 = (row_phase + (tid // tiles_x) * row_stride) * tile_size
+    return x0.to(torch.float32), y0.to(torch.float32)
+
+
 def _blend_tiles_fwd_plain(ptab, inst_gauss, tile_bounds, *, tiles_x,
                            tiles_y, tile_size, width, height, chunk,
-                           alpha_min, alpha_max, early_eps, with_labels
-                           ) -> BlendOutput:
+                           alpha_min, alpha_max, early_eps, with_labels,
+                           lattice: Lattice = FULL) -> BlendOutput:
     """Plain PyTorch version of kernel B1: one step per stream position,
     vectorized over tiles and pixels, in the kernel's operation order (each
     tile composites its l-th instance at step l), so on the card the two
@@ -151,13 +168,14 @@ def _blend_tiles_fwd_plain(ptab, inst_gauss, tile_bounds, *, tiles_x,
                           tiles_y=tiles_y, tile_size=tile_size, width=width,
                           height=height, chunk=chunk, alpha_min=alpha_min,
                           alpha_max=alpha_max, early_eps=early_eps,
-                          with_labels=with_labels, inst_max=False)
+                          with_labels=with_labels, inst_max=False,
+                          lattice=lattice)
     return out
 
 
 def _blend_plain(ptab, inst_gauss, tile_bounds, *, tiles_x, tiles_y,
                  tile_size, width, height, chunk, alpha_min, alpha_max,
-                 early_eps, with_labels, inst_max):
+                 early_eps, with_labels, inst_max, lattice: Lattice = FULL):
     """The forward recurrence of B1 and B5. With ``inst_max`` it also
     returns each instance's max blend weight over all pixels of its tile
     (those past the image edge included), [B] f32, 0 past the last tile."""
@@ -170,9 +188,7 @@ def _blend_plain(ptab, inst_gauss, tile_bounds, *, tiles_x, tiles_y,
     pid = torch.arange(npix, device=dev)
     px = ((pid % tile_size).to(torch.float32) + 0.5)[None, :]
     py = ((pid // tile_size).to(torch.float32) + 0.5)[None, :]
-    tid = torch.arange(num_tiles, device=dev)
-    x0f = ((tid % tiles_x) * tile_size).to(torch.float32)
-    y0f = ((tid // tiles_x) * tile_size).to(torch.float32)
+    x0f, y0f = _tile_origins(tiles_x, tiles_y, tile_size, lattice, dev)
     trans = torch.ones(num_tiles, npix, device=dev)
     rgb = torch.zeros(num_tiles, 3, npix, device=dev)
     best_w = torch.zeros(num_tiles, npix, device=dev)
@@ -221,10 +237,12 @@ def blend_tiles_fwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
                     tile_bounds: torch.Tensor, *, tiles_x: int, tiles_y: int,
                     tile_size: int, width: int, height: int, chunk: int,
                     alpha_min: float, alpha_max: float, early_eps: float,
-                    with_labels: bool) -> BlendOutput:
+                    with_labels: bool, lattice: Lattice = FULL
+                    ) -> BlendOutput:
     """Kernel B1 wrapper: composite every tile's range
     ``inst_gauss[tile_bounds[t]:tile_bounds[t+1]]`` of the depth-sorted
-    stream, reading parameters from the [N, 16] table ``ptab``.
+    stream, reading parameters from the [N, 16] table ``ptab``; local tile
+    t of ``lattice`` (module docstring).
 
     Replaces ``gsplat_tpu/render/blend_pallas.py::_fwd_win_kernel``. On the
     card it launches ``csrc/blend_fwd.cu``: one 256-thread block per tile
@@ -244,7 +262,7 @@ def blend_tiles_fwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
     kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
               width=width, height=height, chunk=chunk, alpha_min=alpha_min,
               alpha_max=alpha_max, early_eps=early_eps,
-              with_labels=with_labels)
+              with_labels=with_labels, lattice=lattice)
     if dev.type == "cpu":
         return _blend_tiles_fwd_plain(ptab, inst_gauss, tile_bounds, **kw)
     if dev.type != "cuda":
@@ -256,9 +274,10 @@ def blend_tiles_fwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
              if with_labels else None)
     fn = _kernels.function("blend_fwd")
     err = fn(ptab.data_ptr(), inst_gauss.data_ptr(), tile_bounds.data_ptr(),
-             num_tiles, tiles_x, tile_size, width, height, chunk, alpha_min,
-             alpha_max, early_eps, int(with_labels), rgb.data_ptr(),
-             trans.data_ptr(), best_w.data_ptr() if with_labels else None,
+             num_tiles, tiles_x, tile_size, width, height, chunk, *lattice,
+             alpha_min, alpha_max, early_eps, int(with_labels),
+             rgb.data_ptr(), trans.data_ptr(),
+             best_w.data_ptr() if with_labels else None,
              label.data_ptr() if with_labels else None, _kernels.stream(dev))
     blend_tiles_fwd.launches += 1
     _kernels.check("blend_fwd", err)
@@ -351,8 +370,8 @@ def _image_to_tiles(img: torch.Tensor, tiles_x: int, tiles_y: int,
 
 def _blend_tiles_bwd_plain(ptab, inst_gauss, tile_bounds, rgb, trans, drgb,
                            dtrans, *, tiles_x, tiles_y, tile_size, width,
-                           height, chunk, alpha_min, alpha_max, early_eps
-                           ) -> torch.Tensor:
+                           height, chunk, alpha_min, alpha_max, early_eps,
+                           lattice: Lattice = FULL) -> torch.Tensor:
     """Plain PyTorch version of kernel B2: the kernel's recurrence, one step
     per stream position, vectorized over tiles and pixels (like
     :func:`_blend_tiles_fwd_plain`, not autograd through it). T and the
@@ -368,9 +387,7 @@ def _blend_tiles_bwd_plain(ptab, inst_gauss, tile_bounds, rgb, trans, drgb,
     pid = torch.arange(npix, device=dev)
     px = ((pid % tile_size).to(torch.float32) + 0.5)[None, :]
     py = ((pid // tile_size).to(torch.float32) + 0.5)[None, :]
-    tid = torch.arange(num_tiles, device=dev)
-    x0f = ((tid % tiles_x) * tile_size).to(torch.float32)
-    y0f = ((tid // tiles_x) * tile_size).to(torch.float32)
+    x0f, y0f = _tile_origins(tiles_x, tiles_y, tile_size, lattice, dev)
     to_tiles = lambda x: _image_to_tiles(x, tiles_x, tiles_y, tile_size)
     c_t, dc_t = to_tiles(rgb), to_tiles(drgb)                # [T, 3, P]
     t_fin = to_tiles(trans[..., None])[:, 0]
@@ -428,13 +445,14 @@ def blend_tiles_bwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
                     transmittance: torch.Tensor, drgb: torch.Tensor,
                     dtrans: torch.Tensor, *, tiles_x: int, tiles_y: int,
                     tile_size: int, width: int, height: int, chunk: int,
-                    alpha_min: float, alpha_max: float,
-                    early_eps: float) -> torch.Tensor:
+                    alpha_min: float, alpha_max: float, early_eps: float,
+                    lattice: Lattice = FULL) -> torch.Tensor:
     """Kernel B2 wrapper: per-instance gradient rows [B, 16] in sorted-stream
     order (columns d_mx, d_my, d_ca, d_cb, d_cc, d_op, d_r, d_g, d_b; the
     rest zero) from the forward's ``rgb`` [H, W, 3] (no background) and
     ``transmittance`` [H, W] and their cotangents. Rows of instances that
     early stop skipped, and of filtered slots past the last tile, are zero.
+    The lattice is B1's (module docstring).
 
     Replaces ``gsplat_tpu/render/blend_pallas.py::_bwd_win_kernel``. On the
     card it launches ``csrc/blend_bwd.cu``: one 256-thread block per tile
@@ -462,7 +480,7 @@ def blend_tiles_bwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
                              "on the table's device")
     kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
               width=width, height=height, chunk=chunk, alpha_min=alpha_min,
-              alpha_max=alpha_max, early_eps=early_eps)
+              alpha_max=alpha_max, early_eps=early_eps, lattice=lattice)
     if dev.type == "cpu":
         return _blend_tiles_bwd_plain(ptab, inst_gauss, tile_bounds, rgb,
                                       transmittance, drgb, dtrans, **kw)
@@ -475,8 +493,8 @@ def blend_tiles_bwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
     drows = torch.empty(total, PARAM_ROWS, device=dev)
     fn = _kernels.function("blend_bwd")
     err = fn(ptab.data_ptr(), inst_gauss.data_ptr(), tile_bounds.data_ptr(),
-             num_tiles, tiles_x, tile_size, width, height, chunk, alpha_min,
-             alpha_max, early_eps, rgb.data_ptr(),
+             num_tiles, tiles_x, tile_size, width, height, chunk, *lattice,
+             alpha_min, alpha_max, early_eps, rgb.data_ptr(),
              transmittance.data_ptr(), drgb.data_ptr(), dtrans.data_ptr(),
              total, drows.data_ptr(), _kernels.stream(dev))
     blend_tiles_bwd.launches += 1

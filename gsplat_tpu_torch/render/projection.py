@@ -71,6 +71,25 @@ def quat_to_rotmat(quats: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+# PyTorch's CPU kernels compute the last (numel % 32) elements of a tensor
+# with scalar code, whose exp, log and sigmoid can round differently from
+# the vector code's; so a gaussian's value would depend on its position in
+# the tensor, and a shard of a scene (parallel/render_sharded.py) would not
+# project as the whole scene does. _lanes puts every element on the vector
+# path. CUDA kernels compute every element alike.
+_CPU_LANES = 32
+
+
+def _lanes(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` elementwise, each element computed by the same code
+    whatever its position (module note above)."""
+    n = x.numel()
+    if x.device.type != "cpu" or n % _CPU_LANES == 0:
+        return fn(x)
+    flat = torch.cat([x.reshape(-1), x.new_zeros(-n % _CPU_LANES)])
+    return fn(flat)[:n].reshape(x.shape)
+
+
 def _sigma3_entries(log_scales: torch.Tensor, quats: torch.Tensor):
     """Unique entries of Sigma3 = R diag(exp(2s)) R^T as six [N] tensors
     (s00, s01, s02, s11, s12, s22), all elementwise."""
@@ -85,7 +104,7 @@ def _sigma3_entries(log_scales: torch.Tensor, quats: torch.Tensor):
     r20 = 2 * (x * z - w * y)
     r21 = 2 * (y * z + w * x)
     r22 = 1 - 2 * (x * x + y * y)
-    e = torch.exp(2.0 * log_scales)
+    e = _lanes(torch.exp, 2.0 * log_scales)
     e0, e1, e2 = e[..., 0], e[..., 1], e[..., 2]
     s00 = r00 * e0 * r00 + r01 * e1 * r01 + r02 * e2 * r02
     s01 = r00 * e0 * r10 + r01 * e1 * r11 + r02 * e2 * r12
@@ -154,14 +173,14 @@ def project(
     inv_det = 1.0 / det_safe
     ca, cb, cc = c * inv_det, -b * inv_det, a * inv_det
 
-    opacity = torch.sigmoid(scene.opacities)
+    opacity = _lanes(torch.sigmoid, scene.opacities)
 
     mid = 0.5 * (a + c)
     lam1 = mid + torch.sqrt(torch.clamp_min(mid * mid - det_safe, 0.0))
     # Opacity-aware cutoff: alpha >= alpha_min is impossible beyond
     # sqrt(2 ln(opacity/alpha_min)) sigmas; opacity < alpha_min culls.
-    cutoff = torch.sqrt(2.0 * torch.log(
-        torch.clamp_min(opacity / cfg.alpha_min, 1.0)))
+    cutoff = torch.sqrt(2.0 * _lanes(torch.log, torch.clamp_min(
+        opacity / cfg.alpha_min, 1.0)))
     cutoff = torch.clamp_max(cutoff, cfg.sigma_cutoff)
     radius = cutoff * torch.sqrt(torch.clamp_min(lam1, 0.0))
     # per-axis half-extents of the cutoff ellipse {q <= cutoff^2}

@@ -119,7 +119,9 @@ def test_cluster_scene_and_recolor_match_jax():
 
 
 def test_kmeans_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # a mesh that is not a parallel.mesh.Mesh (the sharded k-means itself
+    # is held against the unsharded one in tests/test_torch_parallel.py)
+    with pytest.raises(TypeError, match="Mesh"):
         tkm.kmeans(torch.zeros(10, 3), 2, mesh=object())
 
 
@@ -214,10 +216,29 @@ def test_region_growing_cli_matches_jax(tmp_path, capsys):
         np.testing.assert_array_equal(got[f], want[f], f)
 
 
-def test_kmeans_cli_refuses_sharded(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tkmeans_cli.main(["--file_path", "x.ply", "--save_path", "y.ply",
-                          "--sharded", "--device", CPU])
+def test_kmeans_cli_refuses_sharded(tmp_path, capsys, monkeypatch):
+    # --sharded, refused before the multi-GPU slice, now clusters over a
+    # mesh (8 CPU shards here) and writes what the unsharded CLI writes
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+
+    scene = jsynthetic.random_scene(400, seed=6, num_labels=3)
+    src = str(tmp_path / "in.ply")
+    jply.scene_to_ply(src, scene)
+    make = mesh_lib.make_mesh
+    monkeypatch.setattr(mesh_lib, "make_mesh",
+                        lambda devices=None: make((2, 4), devices))
+    outs = {}
+    for tag, flags in (("one", []), ("sharded", ["--sharded"])):
+        assert tkmeans_cli.main(["--file_path", src, "--save_path",
+                                 str(tmp_path / f"{tag}.ply"), "--device",
+                                 CPU, "--binary"] + flags) == 0
+        outs[tag] = [l for l in capsys.readouterr().out.splitlines()
+                     if not l.startswith("wrote")]
+    assert outs["sharded"] == outs["one"]
+    want = tply.read_ply(str(tmp_path / "one.ply"))["vertex"]
+    got = tply.read_ply(str(tmp_path / "sharded.ply"))["vertex"]
+    for f in want.dtype.names:
+        np.testing.assert_array_equal(got[f], want[f], f)
 
 
 # ---------------------------------------------------------------------------

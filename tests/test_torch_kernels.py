@@ -1152,3 +1152,137 @@ def test_viewer_frames_on_card_match_cpu(card):
         for h in httpds:
             h.shutdown()
             h.server_close()
+
+
+# --- the sharded render's interleaved tile lattice (B4, B1, B2) -------------
+
+def _lattice_stream(device, tile_size, dy, dx, py, px, n=20_000):
+    """Shard (py, px) of a (dy, dx) lattice on the card frame: its local
+    grid, binning and table."""
+    from gsplat_tpu_torch.parallel.render_sharded import grid_layout
+    scene, cam, proj, _, _ = _card_frame(device, tile_size, n=n)
+    _, _, tx_l, ty_l = grid_layout(cam.width, cam.height, tile_size, dy * dx)
+    lat = tiles.Lattice(row_stride=dy, row_phase=py, col_stride=dx,
+                        col_phase=px)
+    b = tiles.bin_tiles(proj, tiles_x=tx_l, tiles_y=ty_l,
+                        tile_size=tile_size, **lat._asdict())
+    return proj, tx_l, ty_l, lat, b, api.pack_table(proj, scene.labels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_size", [32, 16])
+@pytest.mark.parametrize("dy,dx", [(2, 2), (4, 2), (1, 4), (1, 1)])
+def test_lattice_kernels_match_plain(card, dy, dx, tile_size):
+    """B4's keys and B1's outputs (with and without labels) equal their
+    plain versions bit for bit under the lattice, at every phase; B2 within
+    its plain version's bar (the per-tile sums over pixels associate
+    differently: 1e-4 of each column's peak, zero rows exact). (1, 1) is
+    the single-device grid: the lattice arguments at strides of 1 give the
+    calls without them."""
+    from gsplat_tpu_torch.parallel.render_sharded import grid_layout
+    for e in range(dy * dx):
+        proj, tx_l, ty_l, lat, b, ptab = _lattice_stream(
+            card, tile_size, dy, dx, e // dx, e % dx)
+        nt = tx_l * ty_l
+        qd = tiles.depth_qkeys(proj.depth, proj.valid, nt)
+        bb = tiles.tile_bboxes(proj, tiles_x=tx_l, tiles_y=ty_l,
+                               tile_size=tile_size, lattice=lat)
+        kw = dict(tiles_x=tx_l, num_tiles=nt, tile_size=tile_size,
+                  db=32 - tiles.depth_shift(nt))
+        keys = tiles.enum_keys(proj, qd, bb, **kw, lattice=lat)
+        pkeys = tiles._enum_keys_plain(proj, qd, bb, **kw, lattice=lat)
+        torch.cuda.synchronize()
+        assert bb.total > 0
+        assert all(torch.equal(a, p) for a, p in zip(keys, pkeys))
+        bkw = dict(tiles_x=tx_l, tiles_y=ty_l, tile_size=tile_size,
+                   width=tx_l * tile_size, height=ty_l * tile_size, chunk=64,
+                   alpha_min=1 / 255, alpha_max=0.999, early_eps=1e-5,
+                   lattice=lat)
+        for labels in (True, False):
+            out = blend.blend_tiles_fwd(ptab, b.inst_gauss, b.tile_bounds,
+                                        **bkw, with_labels=labels)
+            ref = blend._blend_tiles_fwd_plain(ptab, b.inst_gauss,
+                                               b.tile_bounds, **bkw,
+                                               with_labels=labels)
+            torch.cuda.synchronize()
+            for k in blend.BlendOutput._fields:
+                got, want = getattr(out, k), getattr(ref, k)
+                assert (got is None) == (want is None), k
+                assert got is None or torch.equal(got, want), (e, labels, k)
+        _check_bwd(card, ptab, b, 1e-5, **{k: v for k, v in bkw.items()
+                                           if k not in ("alpha_min",
+                                                        "alpha_max",
+                                                        "early_eps")})
+        if dy * dx == 1:
+            # no lattice argument: the single-device call
+            plain = {k: v for k, v in bkw.items() if k != "lattice"}
+            a = blend.blend_tiles_fwd(ptab, b.inst_gauss, b.tile_bounds,
+                                      **plain, with_labels=True)
+            c = blend.blend_tiles_fwd(ptab, b.inst_gauss, b.tile_bounds,
+                                      **bkw, with_labels=True)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(a, c))
+    assert grid_layout(800, 608, tile_size, 1)[:2] == (1, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (2, 4)])
+def test_sharded_render_on_card_bit_equal_to_render(card, shape):
+    """D logical shards on the one card: the sharded render's image,
+    transmittance, best weight and label map equal ``render``'s."""
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    from gsplat_tpu_torch.parallel.render_sharded import render_sharded
+    scene, cam, _, _, _ = _card_frame(card, n=50_001)
+    want = api.render(scene, cam, with_labels=True, device=card)
+    mesh = mesh_lib.make_mesh(shape, [card])
+    got = render_sharded(mesh_lib.shard_scene(scene, mesh),
+                         projection.CameraParams.from_camera(cam, card), mesh,
+                         width=cam.width, height=cam.height,
+                         cfg=api.DEFAULT, with_labels=True)
+    torch.cuda.synchronize()
+    for k in ("image", "transmittance", "best_weight", "label_map"):
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.gpu
+def test_nccl_exchange_backward_equals_in_process(card):
+    """The exchange across ranks (all_to_all_single over NCCL at a world
+    size of 1) and its backward equal the in-process exchange's."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    from gsplat_tpu_torch.parallel import render_sharded as rs
+    from gsplat_tpu_torch.parallel.bootstrap import initialize_distributed
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    gen = torch.Generator(device=card).manual_seed(3)
+    rows = [torch.randn(n, 16, generator=gen, device=card) for n in (7, 5)]
+    # source k sends destination e its rows i with i % 3 != e: 4 + 3 rows
+    # reach destination 0, 5 + 3 destination 1
+    cot = [torch.randn(n, 16, generator=gen, device=card) for n in (7, 8)]
+
+    def run(mesh):
+        leaves = [r.clone().requires_grad_(True) for r in rows]
+        pieces = [[lv[torch.arange(lv.shape[0], device=card) % 3 != e]
+                   for e in range(2)] for lv in leaves]
+        out = rs._exchange(pieces, mesh)
+        grads = torch.autograd.grad(sum((o * c).sum() for o, c in
+                                        zip(out, cot)), leaves)
+        return [o.detach() for o in out], grads
+
+    want = run(mesh_lib.make_mesh((1, 2), [card]))
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = mesh_lib.make_mesh((1, 2), [card, card])
+        assert mesh.distributed
+        got = run(mesh)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert [o.shape[0] for o in got[0]] == [7, 8]
+    for a, b in zip(got[0] + list(got[1]), want[0] + list(want[1])):
+        assert torch.equal(a, b)

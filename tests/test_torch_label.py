@@ -296,10 +296,12 @@ def test_assign_labels_visible_matches_jax():
 
 
 def test_vote_mesh_is_not_ported():
+    # a mesh that is not a parallel.mesh.Mesh is refused (the sharded votes
+    # are held against these in tests/test_torch_parallel.py)
     scene = _port_scene(_wall_and_hidden())
     seg = np.zeros((1, 8, 8), np.int32)
     for fn in (tvote.assign_labels, tvote.assign_labels_visible):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(TypeError, match="Mesh"):
             fn(scene, [_wall_cam()], seg, mesh=object(), device=CPU)
 
 
@@ -437,6 +439,10 @@ def test_label_cli_matches_jax(cli_inputs, mode, capsys):
     # the statistics printout too
     stats = lambda out: [l for l in out.splitlines() if l.startswith("label")]
     assert stats(port_out) == stats(jax_out)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tcli.main(args + ["--output_file", "x.ply", "--device", "cpu",
-                          "--sharded"])
+    # --sharded (refused before the multi-GPU slice) writes the same labels
+    # and prints the same statistics
+    assert tcli.main(args + ["--output_file", "x.ply", "--device", "cpu",
+                             "--sharded"]) == 0
+    assert stats(capsys.readouterr().out) == stats(port_out)
+    np.testing.assert_array_equal(
+        tply.read_ply(str(d / "x.ply"))["vertex"]["label"], got["label"])

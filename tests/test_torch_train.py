@@ -619,5 +619,7 @@ def test_other_train_steps_track_jax(kind):
 
 
 def test_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # a mesh that is not a parallel.mesh.Mesh (the sharded steps are held
+    # against these in tests/test_torch_parallel.py)
+    with pytest.raises(TypeError, match="Mesh"):
         ttrainer.make_train_step((WIDTH, HEIGHT), mesh=object())

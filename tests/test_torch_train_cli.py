@@ -88,12 +88,17 @@ def _interlaced_png():
 
 @pytest.mark.parametrize("case", ["interlaced", "16-bit", "bad crc"])
 def test_decode_png_refuses(tmp_path, case):
+    # an Adam7 file whose data does not fill its seven passes (55 bytes for
+    # a 4x4 RGB image); a 16-bit palette, a depth no palette may have
     if case == "interlaced":
-        data, what = _interlaced_png(), "interlac"
+        data, what = _interlaced_png(), "55 were expected"
     elif case == "16-bit":
-        img = Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8)
-                              * 1000)
-        data, what = _pil_png(img), "bit depth 16"
+        header = struct.pack(">IIBBBBB", 4, 4, 16, 3, 0, 0, 0)
+        data = (png.SIGNATURE + png._chunk(b"IHDR", header)
+                + png._chunk(b"PLTE", bytes(6))
+                + png._chunk(b"IDAT", zlib.compress(b"\0" * 36))
+                + png._chunk(b"IEND", b""))
+        what = "bit depth 16 is not allowed"
     else:
         data = bytearray(_pil_png(Image.fromarray(smooth_image(8, 8))))
         data[-20] ^= 1    # a byte of the IDAT chunk
@@ -361,14 +366,18 @@ def test_train_cli_skips_missing_images(tmp_path, capsys):
     assert "no (camera, image) pairs" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x4"],
+# the mesh flags run (tests/test_torch_parallel.py); a malformed mesh, or a
+# process flag without the other two (and no torchrun environment), raises
+@pytest.mark.parametrize("flag", [["--mesh", "2x4x1"],
                                   ["--coordinator", "localhost:1234"],
                                   ["--num_processes", "2"],
                                   ["--process_id", "0"]])
-def test_train_cli_refuses_mesh_flags(tmp_path, flag):
+def test_train_cli_refuses_mesh_flags(tmp_path, flag, monkeypatch):
+    for var in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
     args = _cli_inputs(tmp_path, 48, 32) + ["--out", str(tmp_path / "o.ply"),
                                             "--device", CPU]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="mesh spec|process group"):
         tcli.main(args + flag)
 
 
