@@ -122,7 +122,9 @@ V. the live viewer at real size: V1 a ``ViewerServer`` of phase 3's 2M
    equal, none more than 2 apart, /select payloads equal);
 5. times on the card (CUDA events, median of 10 after warm-up) of
    projection, B4, the sort, B1, B2, B3, the boundary gathers, B5,
-   ``torch.cumsum`` and the whole render at both frames, B4, B1, B3 and the
+   ``torch.cumsum`` of B3's [B, 16] input along dim 0 and of its
+   column-major copy along dim 1 (copy included; B3's library time is the
+   faster) and the whole render at both frames, B4, B1, B3 and the
    gathers also replayed from a CUDA graph (the kernel without its
    wrapper's host work), the plain versions' times,
    bounds (at the P1 rates and at the data sheet's), and peak device
@@ -144,7 +146,25 @@ M. the multi-device path (``gsplat_tpu_torch/parallel/``) on phase 3's 2M
    over 16 views and the visibility masks equal their single-device
    results, and k-means' labels agree on >= 99.99% (sums over shards add in
    another order). The shards share the one card, so no time here is a
-   D-card time.
+   D-card time;
+G. the parity gate, ``gsplat_tpu_torch.utils.verify_parity``: the image,
+   label map and scene gradients of ``scripts/verify_tpu.py``'s problem
+   (4,000 gaussians, 160x128) through B4, B1, B2, B3 and the gathers on the
+   card against the dense autograd reference on the CPU; fails past
+   ``PARITY_TPU.json``'s bars (pixels 1e-3, gradients 1e-3 of each peak),
+   a label map not equal or ``num_dropped`` not 0;
+Q. the training-quality gate, ``gsplat_tpu_torch.utils.train_quality``, at
+   its default widths (192x144, 28 views with 4 held out, 1,900 GT
+   gaussians, 4,000 at init in 16,000 slots) cut to QUALITY_ITERS
+   iterations with a densify every QUALITY_DENSIFY_EVERY: no step drops an
+   instance, every densify grows the live set, the PLY reloads the alive
+   set, the held-out PSNR beats the initial scene's by QUALITY_MARGIN_DB;
+   the multiview step's time (median, min, max, p90);
+X. the twins of examples/01-05 (``examples_torch/``), each in a subprocess
+   on the card and one on the CPU, all started together: each exits 0 and
+   writes its files, the card's printed numbers agree with the CPU's under
+   EXAMPLE_BARS, 05's sharded error is at most 1e-5 and each child's
+   launch counts (B5 in 02) join ``launches_by_path``.
 
 The second-to-last line of stdout is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``.
@@ -159,6 +179,7 @@ import gc
 import http.client
 import io
 import json
+import os
 import queue
 import re
 import shutil
@@ -209,7 +230,8 @@ from gsplat_tpu_torch.render.api import (_render_impl, _segment_sums_plain,
 from gsplat_tpu_torch.render.projection import (CameraParams, project,
                                                 tile_grid)
 from gsplat_tpu_torch.scene import color_to_dc, dc_color, scene_from_numpy
-from gsplat_tpu_torch.utils import checkpoint, roofline, scan_probe
+from gsplat_tpu_torch.utils import (checkpoint, roofline, scan_probe,
+                                    train_quality, verify_parity)
 from gsplat_tpu_torch.utils.blend_probe import segment_sum_ops
 from gsplat_tpu_torch.utils.profiling import graph_ms
 from gsplat_tpu_torch.utils.roofline import B4_OPS_PER_SLOT, HBM_BYTES_PER_S
@@ -296,6 +318,39 @@ MESH_STEP_SHARDS = 4
 MESH_VOTE_VIEWS = 16
 MESH_VOTE_SHARDS = 4
 MESH_KMEANS_AGREEMENT = 0.9999
+
+# Phase Q, the training-quality gate at its default widths (192x144, 28
+# views, 1,500 + 400 GT gaussians, 4,000 at init, 16,000 slots), cut in
+# iterations only. Its fit must beat the initial scene's held-out PSNR by
+# QUALITY_MARGIN_DB; the full run's 28 dB bar is PERF.md's.
+QUALITY_ITERS = 400
+QUALITY_DENSIFY_EVERY = 100
+QUALITY_MARGIN_DB = 3.0
+
+# Phase X, the twins of examples/01-05 (examples_torch/), each run on the
+# card and on the CPU in a subprocess. A line holding a number is held to
+# the bar of its pattern, (relative, absolute), on each number it matches
+# and equal elsewhere; every other line is equal, except the "wrote ..."
+# lines, which name each run's own directory. tests/test_torch_examples.py
+# holds the CPU runs to the JAX examples' lines with the same bars: 01's
+# coverage is a mean of 76,800 alphas, which PERF.md section 2's image bar
+# holds within 1.5e-5; a loss or a fitted error within the train steps'
+# 1e-4 relative, plus half the last printed digit; 03's perturbation, a
+# float32 mean summed in another order, within 1e-6; 05's sharded error
+# is at most 1e-5 in each run.
+EXAMPLES = ("01_render_and_edit", "02_label_pipeline", "03_train_scene",
+            "04_clustering", "05_multichip")
+EXAMPLE_ERR = r"err: ([0-9.e+-]+)"
+EXAMPLE_ERR_BAR = 1e-5
+EXAMPLE_BARS = {
+    "01_render_and_edit": {r"coverage ([0-9.]+)": (0.0, 1e-4)},
+    "03_train_scene": {r"loss ([0-9.]+)": (1e-4, 5e-7),
+                       r"before: ([0-9.e-]+)": (1e-6, 0.0),
+                       r"after: ([0-9.e-]+)": (1e-4, 0.0)},
+    "05_multichip": {EXAMPLE_ERR: (0.0, EXAMPLE_ERR_BAR),
+                     r"loss ([0-9.]+)": (1e-4, 5e-7)},
+}
+EXAMPLE_TIMEOUT_S = 300
 
 
 def log(obj) -> None:
@@ -2531,6 +2586,194 @@ def mesh_phase(scene, cam, device, card) -> dict:
     return out
 
 
+def parity_phase(card) -> dict:
+    """Phase G: ``utils.verify_parity`` with its kernel stage on the card;
+    fails past a bar. Returns its launches."""
+    out = REPO / "build" / "chip_smoke" / "parity_torch.json"
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = verify_parity.main(["--out", str(out)])
+    launches = read_launches()
+    report = json.loads(out.read_text())
+    log({"phase": "G parity", "rc": rc,
+         **{k: report[k] for k in ("device", "reference", "reference_wall_s",
+                                   "wall_s", "pixels_vs_dense_cpu",
+                                   "grads_vs_dense_cpu",
+                                   "label_map_vs_dense_cpu", "num_dropped",
+                                   "pass", "tolerances")},
+         "launches": launches, "phase_wall_s": time.perf_counter() - t0,
+         "card": card})
+    if rc != 0 or not report["pass"]:
+        raise AssertionError(f"G: the kernels miss the parity bars: {report}")
+    want = {"enum_keys": 2, "blend_tiles_fwd": 2, "blend_tiles_bwd": 1,
+            "cumsum_rows": 1, "segment_sums": 1}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"G launched {launches}, not {want}")
+    return launches
+
+
+def quality_phase(card) -> dict:
+    """Phase Q: ``utils.train_quality`` at its default widths for
+    QUALITY_ITERS iterations, densifying every QUALITY_DENSIFY_EVERY; no
+    step drops an instance (the gate raises), every densify grows the live
+    set, the PLY reloads the alive set and the held-out PSNR beats the
+    initial scene's by QUALITY_MARGIN_DB. Returns its launches."""
+    work = REPO / "build" / "chip_smoke" / "quality"
+    out = work / "train_quality_torch.json"
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = train_quality.main(["--iters", str(QUALITY_ITERS), "--densify-every",
+                             str(QUALITY_DENSIFY_EVERY), "--out", str(out),
+                             "--workdir", str(work)])
+    launches = read_launches()
+    art = json.loads(out.read_text())
+    fit = art["fit"]
+    log({"phase": "Q training-quality gate", "rc": rc,
+         "gt": art["gt"], "iters": fit["iters"],
+         "init_gaussians": fit["init_gaussians"],
+         "final_gaussians": fit["final_gaussians"],
+         "densify_events": fit["densify_events"],
+         "step_ms": fit["step_ms"], "losses": fit["losses"],
+         "initial_mean_psnr_db": art["initial_mean_psnr_db"],
+         "mean_psnr_db": art["mean_psnr_db"], "mean_ssim": art["mean_ssim"],
+         "held_out": art["held_out"], "num_dropped": art["num_dropped"],
+         "train_wall_s": fit["train_wall_s"], "ply_reloaded":
+         fit["ply_reloaded"], "launches": launches,
+         "phase_wall_s": time.perf_counter() - t0, "card": card})
+    views = art["gt"]["views"] - art["gt"]["held_out"]
+    steps = QUALITY_ITERS * views
+    densified = fit["densify_events"]
+    gain = art["mean_psnr_db"] - art["initial_mean_psnr_db"]
+    if not (rc in (0, 2) and art["num_dropped"] == 0 and densified
+            and all(e["alive_after"] > e["alive_before"] for e in densified)
+            and fit["ply_reloaded"] and gain >= QUALITY_MARGIN_DB):
+        raise AssertionError(f"Q: the gate went wrong: rc {rc}, gain {gain} "
+                             f"dB, densify {densified}, PLY reloaded "
+                             f"{fit['ply_reloaded']}")
+    for k in ("blend_tiles_bwd", "cumsum_rows", "segment_sums"):
+        if launches[k] != steps:
+            raise AssertionError(f"Q launched {k} {launches[k]} times in "
+                                 f"{QUALITY_ITERS} steps of {views} views")
+    if launches["enum_keys"] < steps or launches["blend_tiles_fwd"] < steps:
+        raise AssertionError(f"Q launched {launches}")
+    return launches
+
+
+_EXAMPLE_CHILD = r"""
+import json, runpy, sys
+from gsplat_tpu_torch.render import blend, tiles
+from gsplat_tpu_torch.render.api import segment_sums
+
+path = sys.argv[1]
+sys.argv = [path] + sys.argv[2:]
+try:
+    runpy.run_path(path, run_name="__main__")
+    code = 0
+except SystemExit as stop:
+    code = stop.code
+wrappers = (tiles.enum_keys, blend.blend_tiles_fwd, blend.blend_tiles_bwd,
+            blend.cumsum_rows, segment_sums, blend.blend_tiles_vis)
+print("LAUNCHES " + json.dumps({w.__name__: w.launches for w in wrappers}))
+sys.exit(code)
+"""
+
+
+def example_lines_agree(name: str, got, want) -> list:
+    """The lines of ``got`` that miss ``want``'s under EXAMPLE_BARS (empty
+    when every line agrees); "wrote ..." lines are skipped."""
+    got = [ln for ln in got if not ln.startswith("wrote")]
+    want = [ln for ln in want if not ln.startswith("wrote")]
+    if len(got) != len(want):
+        return [f"{len(got)} lines, not {len(want)}"]
+    bad = []
+    for g, w in zip(got, want):
+        masked_g, masked_w = g, w
+        for pattern, (rtol, atol) in EXAMPLE_BARS.get(name, {}).items():
+            mg, mw = re.search(pattern, g), re.search(pattern, w)
+            if mg is None or mw is None:
+                continue
+            a, b = float(mg.group(1)), float(mw.group(1))
+            if abs(a - b) > rtol * abs(b) + atol:
+                bad.append(f"{g!r} vs {w!r}")
+            masked_g = masked_g.replace(mg.group(1), "#", 1)
+            masked_w = masked_w.replace(mw.group(1), "#", 1)
+        if masked_g != masked_w:
+            bad.append(f"{g!r} vs {w!r}")
+    return bad
+
+
+def examples_phase(device, card) -> dict:
+    """Phase X: each twin of examples/01-05 in a subprocess on the card and
+    one on the CPU, all started together; each exits 0, the card's lines
+    agree with the CPU's under EXAMPLE_BARS and 05's sharded error is at
+    most EXAMPLE_ERR_BAR on both. Returns the card runs' launches, which
+    each child counts from 0 and prints last."""
+    work = REPO / "build" / "chip_smoke" / "examples"
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for name in EXAMPLES:
+            for dev in (device.type, "cpu"):
+                out_dir = work / dev / name
+                out_dir.mkdir(parents=True, exist_ok=True)
+                env = dict(os.environ, OMP_NUM_THREADS="2")
+                procs[name, dev] = subprocess.Popen(
+                    [sys.executable, "-c", _EXAMPLE_CHILD,
+                     str(REPO / "examples_torch" / f"{name}.py"), "--device",
+                     dev, "--out-dir", str(out_dir)], cwd=REPO, env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+        runs = {}
+        for key, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            lines = stdout.splitlines()
+            counts = json.loads(lines[-1].split(" ", 1)[1]) \
+                if lines and lines[-1].startswith("LAUNCHES ") else None
+            runs[key] = (proc.returncode, lines[:-1], counts, stderr)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    launches = {fn.__name__: 0 for fn in WRAPPERS}
+    rows = {}
+    for name in EXAMPLES:
+        (rc_c, card_lines, counts, err_c), (rc_h, cpu_lines, _, err_h) = (
+            runs[name, device.type], runs[name, "cpu"])
+        if rc_c or rc_h or counts is None:
+            raise AssertionError(f"X: {name} failed: card rc {rc_c}, CPU rc "
+                                 f"{rc_h}\n{err_c[-2000:]}\n{err_h[-2000:]}")
+        for k, v in counts.items():
+            launches[k] += v
+        bad = example_lines_agree(name, card_lines, cpu_lines)
+        rows[name] = {"card": card_lines, "cpu": cpu_lines,
+                      "launches": counts, "disagree": bad}
+        log({"phase": "X example", "example": name,
+             "card_lines": card_lines, "cpu_lines": cpu_lines,
+             "launches": counts, "disagree": bad,
+             "card_files": sorted(p.name for p in
+                                  (work / device.type / name).iterdir()),
+             "card": card})
+        if bad:
+            raise AssertionError(f"X: {name} on the card differs from the "
+                                 f"CPU: {bad}")
+    errs = [float(re.search(EXAMPLE_ERR, ln).group(1))
+            for dev in ("card", "cpu") for ln in rows["05_multichip"][dev]
+            if re.search(EXAMPLE_ERR, ln)]
+    if len(errs) != 2 or max(errs) > EXAMPLE_ERR_BAR:
+        raise AssertionError(f"X: 05's sharded error {errs}")
+    if rows["02_label_pipeline"]["launches"]["blend_tiles_vis"] == 0:
+        raise AssertionError("X: example 02 never launched B5")
+    for k in ("enum_keys", "blend_tiles_fwd", "blend_tiles_bwd",
+              "cumsum_rows", "segment_sums"):
+        if launches[k] == 0:
+            raise AssertionError(f"X: the examples never launched {k}")
+    log({"phase": "X done", "launches": launches,
+         "wall_s": time.perf_counter() - t0, "card": card})
+    return launches
+
+
 def rehearse(views: int, reduce: int) -> int:
     """Phase L at reduced size on the CPU, where the kernel wrappers take
     their plain versions: the 2M scene with ``reduce`` times fewer
@@ -2762,6 +3005,8 @@ def main(argv=None) -> int:
                           ("fold", lambda: fr.fold(drows)),
                           ("B3 cumsum_rows", lambda: blend.cumsum_rows(rows)),
                           ("torch.cumsum", lambda: torch.cumsum(rows, 0)),
+                          ("torch.cumsum column-major",
+                           lambda: torch.cumsum(rows.t().contiguous(), 1).t()),
                           ("segment_sums", lambda: fr.segment_sums(cs)),
                           ("B5 blend_tiles_vis", fr.blend_vis)):
             ms, runs = cuda_ms(fn)
@@ -2842,12 +3087,26 @@ def main(argv=None) -> int:
     meshed = mesh_phase(scene, cams[0], device, card)
     log({"phase": "M done", "wall_s": time.perf_counter() - t0})
     sharded_launches = meshed["sharded_launches"]
+
+    # G. the parity gate: the kernels on the card against the dense CPU
+    # reference
+    parity_launches = parity_phase(card)
+
+    # Q. the training-quality gate at its default widths, cut in iterations
+    quality_launches = quality_phase(card)
+
+    # X. the example twins on the card and on the CPU
+    example_launches = examples_phase(device, card)
+
     by_path = {k: {"render": launches[k], "train": train_launches[k],
                    "label": label_launches[k], "render_cli": cli_launches[k],
                    "train_cli": train_cli_launches[k],
                    "cluster": cluster["launches"][k],
                    "view": view_launches[k],
-                   "sharded": sharded_launches[k]}
+                   "sharded": sharded_launches[k],
+                   "parity": parity_launches[k],
+                   "quality": quality_launches[k],
+                   "examples": example_launches[k]}
                for k in launches}
 
     def blend_row(k):
@@ -2885,7 +3144,10 @@ def main(argv=None) -> int:
          "ms": row["B3 cumsum_rows"], "graph_ms": row["B3 cumsum_rows graph"],
          "plain_ms": row["B3 plain"],
          "bound_ms": b3[0], "bound_by": b3[1],
-         "library_ms": row["torch.cumsum"]},
+         "library_ms": min(row["torch.cumsum"],
+                           row["torch.cumsum column-major"]),
+         "library_ms_dim0": row["torch.cumsum"],
+         "library_ms_column_major": row["torch.cumsum column-major"]},
         {"name": "segment_sums", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/fold_segments.cu",
          "replaces": "gsplat_tpu/render/api.py:156-160 (XLA gathers)",
@@ -2909,7 +3171,9 @@ def main(argv=None) -> int:
     # P1 and the scan probe for P2; every path's counts are in
     # launches_by_path. No single PyTorch call computes B4, B1, B2, B5 or
     # the gathers (B5's segment max onto gaussians is a scatter_reduce
-    # outside the kernel), hence no library time; B3's is torch.cumsum.
+    # outside the kernel), hence no library time; B3's is the faster of
+    # torch.cumsum along dim 0 of the [B, 16] rows (PyTorch's outer-dimension
+    # scan) and of the column-major copy along dim 1, the copy included.
     # Bounds take the P1 probes' rates, those of the data sheet beside them.
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]

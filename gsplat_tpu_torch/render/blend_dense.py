@@ -13,7 +13,7 @@ runs in full f32 on the card as long as
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -49,14 +49,20 @@ def blend_dense(
     cfg: RasterConfig,
     labels: Optional[torch.Tensor] = None,
     background: Optional[torch.Tensor] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Composite the gaussians in ``order`` at every pixel: ``image``,
     ``alpha``, ``transmittance`` and, with ``labels``, ``label_map`` (the
     label of each pixel's largest weight, the first of equal ones;
-    ``UNLABELED`` where no weight is above 0)."""
+    ``UNLABELED`` where no weight is above 0). ``rows`` = (y0, y1)
+    composites image rows y0..y1-1 alone, so a caller bounds the [P, N]
+    matrices by rendering in blocks of rows. The compositing runs in the
+    projection's float type (float64 if ``proj``'s fields are)."""
     dev = proj.u.device
+    y0, y1 = rows if rows is not None else (0, height)
+    height = y1 - y0
     px = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
-    py = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+    py = torch.arange(y0, y1, dtype=torch.float32, device=dev) + 0.5
     gy, gx = torch.meshgrid(py, px, indexing="ij")   # [H, W]
     pxf, pyf = gx.reshape(-1), gy.reshape(-1)
 

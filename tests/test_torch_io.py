@@ -2,7 +2,9 @@
 
 - An installed port (``pip install --no-deps --no-build-isolation
   --prefix`` of the files git would commit) reads a PLY through the native
-  codec, built from the C++ source the package ships into a user cache.
+  codec, built from the C++ source the package ships into a user cache,
+  and each of its console scripts (``gsplat-torch-*``) answers ``--help``
+  from the prefix's ``bin/``.
 - The shipped source is byte-equal to the repository's
   ``native/gsplat_native.cpp``.
 - ``io/png.py::decode_png`` equals Pillow's ``Image.open(p).convert("RGB")``
@@ -77,8 +79,11 @@ def _committable_tree(dst: str) -> None:
         shutil.copy2(os.path.join(ROOT, f), dst)
 
 
-def test_installed_port_reads_ply_natively(tmp_path):
-    src, prefix = tmp_path / "src", tmp_path / "prefix"
+@pytest.fixture(scope="module")
+def installed(tmp_path_factory):
+    """(site-packages, prefix) of one install of the committable files."""
+    tmp = tmp_path_factory.mktemp("install")
+    src, prefix = tmp / "src", tmp / "prefix"
     _committable_tree(str(src))
     r = subprocess.run(
         [sys.executable, "-m", "pip", "install", "--no-deps",
@@ -86,10 +91,16 @@ def test_installed_port_reads_ply_natively(tmp_path):
          str(src)], capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     site = glob.glob(str(prefix / "lib" / "python*" / "site-packages"))
-    assert site and os.path.isfile(os.path.join(
-        site[0], "gsplat_tpu_torch", "native", "gsplat_native.cpp"))
+    assert site
+    return site[0], prefix
+
+
+def test_installed_port_reads_ply_natively(installed, tmp_path):
+    site, _ = installed
+    assert os.path.isfile(os.path.join(
+        site, "gsplat_tpu_torch", "native", "gsplat_native.cpp"))
     cache = tmp_path / "cache"
-    env = dict(os.environ, PYTHONPATH=site[0], XDG_CACHE_HOME=str(cache),
+    env = dict(os.environ, PYTHONPATH=site, XDG_CACHE_HOME=str(cache),
                OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", _CHILD,
                         str(tmp_path / "s.ply")], capture_output=True,
@@ -97,7 +108,25 @@ def test_installed_port_reads_ply_natively(tmp_path):
     assert r.returncode == 0, r.stderr
     # built into the cache, not beside the installed package
     assert str(cache / "gsplat_tpu_torch" / "native") in r.stdout, r.stdout
-    assert not os.path.exists(os.path.join(site[0], "build"))
+    assert not os.path.exists(os.path.join(site, "build"))
+
+
+PORT_SCRIPTS = ("train", "render", "view", "label", "kmeans",
+                "region-growing")
+
+
+@pytest.mark.parametrize("name", PORT_SCRIPTS)
+def test_installed_console_script_answers_help(installed, name):
+    site, prefix = installed
+    script = prefix / "bin" / f"gsplat-torch-{name}"
+    assert script.is_file()
+    env = dict(os.environ, PYTHONPATH=site, OMP_NUM_THREADS="1")
+    r = subprocess.run([str(script), "--help"], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=str(prefix))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("usage: gsplat-torch-"), r.stdout
+    # the JAX package's names stay as they were
+    assert (prefix / "bin" / f"gsplat-{name}").is_file()
 
 
 def test_shipped_native_source_is_the_repos():

@@ -374,6 +374,69 @@ def test_iou_functions_match_jax(tmp_path):
         jiou.labelme_mask(str(ann), "Lego", 8, 9))
 
 
+def _polygons(kind, count, seed):
+    """``count`` seeded simple polygons of ``kind`` in images of 20-80 px:
+    convex (vertices on a circle) or concave (star-shaped: sorted angles,
+    radii 0.3-1 of the largest), float vertices as labelme writes them, or
+    concave with every vertex on a pixel centre (x.5) or on pixel edges
+    (integers); some vertices fall outside the image."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        h, w = (int(v) for v in rng.integers(20, 80, size=2))
+        k = int(rng.integers(3, 14))
+        centre = rng.uniform(-5, [w + 5, h + 5])
+        ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+        radius = rng.uniform(2, 0.8 * max(h, w))
+        r = radius * (np.ones(k) if kind == "convex"
+                      else rng.uniform(0.3, 1.0, k))
+        pts = centre + r[:, None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+        if kind == "centres":
+            pts = np.round(pts) + 0.5
+        elif kind == "edges":
+            pts = np.round(pts)
+        out.append((h, w, pts.tolist()))
+    return out
+
+
+def _pillow_mask(h, w, pts):
+    from PIL import Image, ImageDraw
+
+    img = Image.new("L", (w, h), 0)
+    ImageDraw.Draw(img).polygon([tuple(p) for p in pts], fill=1)
+    return np.asarray(img, dtype=np.int32)
+
+
+@pytest.mark.parametrize("kind", ["convex", "concave", "centres", "edges"])
+def test_labelme_mask_equals_pillow(kind, tmp_path):
+    # 4 x 60 seeded polygons, and the IoU tests' labelme polygons, filled
+    # without Pillow equal Pillow's fill pixel for pixel
+    cases = _polygons(kind, 60, seed=["convex", "concave", "centres",
+                                      "edges"].index(kind))
+    cases += [(8, 9, [[1, 1], [6, 1], [6, 6], [1, 6]]),
+              (8, 9, [[0, 0], [2, 0], [2, 2]])]
+    for h, w, pts in cases:
+        got = tiou.fill_polygon(np.zeros((h, w), np.int32), pts)
+        np.testing.assert_array_equal(got, _pillow_mask(h, w, pts),
+                                      err_msg=str(pts))
+    # several shapes of one label in one annotation, through both packages'
+    # labelme_mask
+    h, w, _ = cases[0]
+    shapes = [{"label": "Lego" if i % 3 else "other", "points": pts}
+              for i, (_, _, pts) in enumerate(cases[:9])]
+    ann = tmp_path / "ann.json"
+    ann.write_text(json.dumps({"shapes": shapes}))
+    got = tiou.labelme_mask(str(ann), "Lego", h, w)
+    np.testing.assert_array_equal(got, jiou.labelme_mask(str(ann), "Lego",
+                                                         h, w))
+    assert got.dtype == np.int32
+
+
+def test_iou_module_imports_no_pil():
+    src = open(tiou.__file__).read()
+    assert "PIL" not in src.replace("Pillow", "")
+
+
 # --- 5. the labeled PLY and the CLI ----------------------------------------
 
 def test_add_labels_to_ply_matches_jax(tmp_path):
