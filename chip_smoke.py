@@ -27,6 +27,20 @@ P. the probes: ``python -m gsplat_tpu_torch.utils.roofline``'s path (the
    (the first at least 2.5x the second, or the passes were collapsed), and
    the probes' times, plain and library times and bounds; the measured
    rates then bound every kernel in phase 5, the data sheet's beside them;
+B. the twins of the repository's two measurement programs at their
+   defaults, each through its ``main`` in this process: ``utils.bench``
+   (``bench.py``'s 100k-gaussian frame at 800x608) fwd+bwd and
+   ``--forward-only``, given phase P's report as ``--roofline``, and
+   ``utils.bench_vote`` (``bench_vote.py``'s 1M gaussians x 311 views) in
+   center and visible mode; each JSON line logged with the card; every
+   value finite and positive, each ``vs_baseline`` of the bench in (0,
+   1.05] and its SOL phase P's, no pair shortfall (exit 1), ``num_dropped``
+   0, the bench step's image (both modes) equal bit for bit to
+   ``render``'s of the same scene and camera; B4, B1, B2, B3 and the
+   gathers launched in the bench, B4 and B5 in the visible vote; then, on
+   the visible vote's view 0 (tiles of up to ~70k instances), B4 keys
+   equal to its plain version's, B5 within 1e-5 of its plain version, and
+   B1 at early_stop_eps 0 equal to B5 bit for bit;
 2. the repo's bench frame (100k gaussians, 800x608, ``bench.py``): each
    kernel against its plain PyTorch version (B4 keys exactly equal, B1 within
    1e-5 at early_stop_eps 0 and at the default, labels equal; B2 within 1e-4
@@ -179,6 +193,7 @@ import gc
 import http.client
 import io
 import json
+import math
 import os
 import queue
 import re
@@ -232,11 +247,15 @@ from gsplat_tpu_torch.render.projection import (CameraParams, project,
 from gsplat_tpu_torch.scene import color_to_dc, dc_color, scene_from_numpy
 from gsplat_tpu_torch.utils import (checkpoint, roofline, scan_probe,
                                     train_quality, verify_parity)
+from gsplat_tpu_torch.utils import bench as bench_twin
+from gsplat_tpu_torch.utils import bench_vote as vote_twin
 from gsplat_tpu_torch.utils.blend_probe import segment_sum_ops
 from gsplat_tpu_torch.utils.profiling import graph_ms
 from gsplat_tpu_torch.utils.roofline import B4_OPS_PER_SLOT, HBM_BYTES_PER_S
 
 REPO = Path(__file__).resolve().parent
+# phase P's roofline report, which phase B's bench reads as --roofline
+ROOFLINE_REPORT = REPO / "build" / "chip_smoke" / "roofline_torch.json"
 WIDTH, HEIGHT = 800, 608
 # The instance counts of the bench frame as the JAX package's binning
 # (gsplat_tpu.render.tiles) computes them on the CPU.
@@ -1257,7 +1276,7 @@ def probe_phase(device, card) -> dict:
     after; each kernel against its plain version; the probes' times,
     plain and library times and bounds. Returns the measured peaks and the
     kernel rows."""
-    out = REPO / "build" / "chip_smoke" / "roofline_torch.json"
+    out = ROOFLINE_REPORT
     reset_launches()
     t0 = time.perf_counter()
     rc = roofline.main(["--out", str(out)])
@@ -1405,6 +1424,91 @@ def probe_phase(device, card) -> dict:
                      "bound_by_datasheet": bs[1], "library_ms": lib_ms})
     del wide
     return peaks, rows
+
+
+# the largest vs_baseline phase B accepts: bench.py's SOL bound plus the
+# timer's spread
+BENCH_VS_MAX = 1.05
+
+
+def twin_line(main, argv) -> tuple:
+    """(exit code, the last stdout line as JSON or None) of a twin's
+    ``main(argv)`` run in this process."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if rc == 0 and lines else None)
+
+
+def bench_phase(device, card, report: Path) -> tuple:
+    """Phase B: the twins of ``bench.py`` (fwd+bwd, ``--forward-only``) and
+    ``bench_vote.py`` (center, visible) at their defaults through their
+    ``main``, the bench with phase P's ``report`` as ``--roofline``; each
+    path's launches counted from 0. Fails on a value not finite or not
+    positive, a ``vs_baseline`` outside (0, BENCH_VS_MAX], a SOL that is not
+    ``report``'s, an exit code not 0, a dropped instance, a bench step image
+    not equal to ``render``'s, or a kernel of a path not launched. Then B4
+    and B5 against their plain versions, and B1 at eps 0 against B5, on the
+    visible vote's view 0, whose tiles are the longest the path gives them.
+    Returns the bench's and the vote's launches and B4's and B5's errors
+    there."""
+    problem = bench_twin.make_problem(bench_twin.parse_args([]))
+    want = render(problem.scene, problem.cam, problem.cfg,
+                  device=device)["image"]
+    for forward_only in (False, True):
+        got = bench_twin.step(problem._replace(forward_only=forward_only))
+        if not torch.equal(got["image"], want):
+            raise AssertionError(f"B: the bench step's image (forward_only "
+                                 f"{forward_only}) is not render()'s")
+    log({"check": "B bench step image vs render", "equal": True,
+         "frame": [problem.cam.width, problem.cam.height]})
+    del want, got
+    sol = json.loads(report.read_text())["sol_mpix_per_s"]
+    reset_launches()
+    for argv in ([], ["--forward-only"]):
+        t0 = time.perf_counter()
+        rc, rec = twin_line(bench_twin.main, ["--roofline", str(report)]
+                            + argv)
+        log({"phase": "B bench", "argv": argv, "rc": rc, "line": rec,
+             "wall_s": time.perf_counter() - t0, "card": card})
+        if rc != 0:
+            raise AssertionError(f"B: the bench {argv} exited {rc}")
+        vals = [rec["value"], *rec["value_spread"], rec["vs_baseline"]]
+        if not (all(math.isfinite(v) and v > 0 for v in vals)
+                and rec["vs_baseline"] <= BENCH_VS_MAX
+                and rec["num_dropped"] == 0
+                and abs(rec["sol_mpix_per_s"] / sol - 1) <= 1e-6):
+            raise AssertionError(f"B: the bench {argv} is wrong: {rec}")
+    bench_launches = read_launches()
+    reset_launches()
+    for mode in ("center", "visible"):
+        t0 = time.perf_counter()
+        rc, rec = twin_line(vote_twin.main, ["--mode", mode])
+        log({"phase": "B bench_vote", "mode": mode, "rc": rc, "line": rec,
+             "wall_s": time.perf_counter() - t0, "card": card})
+        if rc != 0 or not (math.isfinite(rec["value"]) and rec["value"] > 0
+                           and 0 < rec["labeled_fraction"] <= 1):
+            raise AssertionError(f"B: the vote ({mode}) is wrong: {rec}")
+    vote_launches = read_launches()
+    log({"phase": "B done", "bench_launches": bench_launches,
+         "bench_vote_launches": vote_launches})
+    for launched, names in (
+            (bench_launches, ("enum_keys", "blend_tiles_fwd",
+                              "blend_tiles_bwd", "cumsum_rows",
+                              "segment_sums")),
+            (vote_launches, ("enum_keys", "blend_tiles_vis"))):
+        if any(launched[k] == 0 for k in names):
+            raise AssertionError(f"B launched {launched}")
+    vp = vote_twin.make_problem(vote_twin.parse_args(["--mode", "visible"]))
+    fr = Frame(vp.scene, vp.cameras[0])
+    err_b4 = check_b4(fr)
+    log({"check": "B4 enum_keys vs plain", "frame": "vote view 0",
+         "keys_equal": True, "slots": fr.bb.total,
+         "counts": fr.instance_counts()})
+    err_b5 = check_b5(fr, "vote view 0")
+    check_b1_equals_b5(fr, "vote view 0")
+    return bench_launches, vote_launches, err_b4, err_b5
 
 
 RENDER_SESSION = (EditState().toggle_visibility(3)
@@ -2855,13 +2959,19 @@ def main(argv=None) -> int:
     rates = roofline.measured_rates(peaks)
     sheet = card_datasheet_rates()
 
+    # B. the twins of bench.py and bench_vote.py at their defaults
+    t0 = time.perf_counter()
+    bench_launches, vote_launches, err_b4_vote, err_b5_vote = bench_phase(
+        device, card, ROOFLINE_REPORT)
+    log({"phase": "B wall", "wall_s": time.perf_counter() - t0})
+
     # 2. bench frame: kernels against plain versions, counts, small render
     bench = Frame(random_scene(100_000, seed=0, extent=1.5,
                                scale_range=(0.004, 0.02), num_labels=16,
                                device=device),
                   look_at_camera((0, 0, -3.0), (0, 0, 0), width=WIDTH,
                                  height=HEIGHT))
-    err_b4 = check_b4(bench)
+    err_b4 = max(err_b4_vote, check_b4(bench))
     log({"check": "B4 enum_keys vs plain", "frame": "bench",
          "keys_equal": True, "slots": bench.bb.total})
     err_b1 = check_b1(bench, "bench")
@@ -2873,7 +2983,7 @@ def main(argv=None) -> int:
                              "JAX binning's")
     check_small_render(device)
     check_gradients(device)
-    err_b5 = check_b5(bench, "bench")
+    err_b5 = max(err_b5_vote, check_b5(bench, "bench"))
     check_b1_equals_b5(bench, "bench")
     err_fold = check_segment_sums(bench.fold_cs(), bench.binning.enum_start,
                                   bench.binning.enum_cnt, "bench")
@@ -3106,7 +3216,9 @@ def main(argv=None) -> int:
                    "sharded": sharded_launches[k],
                    "parity": parity_launches[k],
                    "quality": quality_launches[k],
-                   "examples": example_launches[k]}
+                   "examples": example_launches[k],
+                   "bench": bench_launches[k],
+                   "bench_vote": vote_launches[k]}
                for k in launches}
 
     def blend_row(k):

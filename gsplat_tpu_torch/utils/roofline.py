@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gsplat_tpu_torch import _kernels
-from gsplat_tpu_torch.config import DEFAULT
+from gsplat_tpu_torch.config import DEFAULT, Config
 from gsplat_tpu_torch.io.cameras import look_at_camera
 from gsplat_tpu_torch.io.synthetic import random_scene
 from gsplat_tpu_torch.render import blend
@@ -400,13 +400,13 @@ def blend_bound(kernel: str, pairs: tuple, n: int, b: int, num_tiles: int,
                  live, rates)
 
 
-def frame_report(peaks: dict, device: torch.device) -> dict:
-    """The SOL report: the bench frame (``bench.py``'s scene: 100k
-    gaussians, seed 0, scales 0.004-0.02, from (0, 0, -3) at 800x608)
-    binned by the port, its pairs counted, and B1's and B2's bounds at the
-    measured rates."""
-    gaussians, width, height = 100_000, 800, 608
-    cfg = DEFAULT
+def frame_pairs(device: torch.device, *, gaussians: int = 100_000,
+                width: int = 800, height: int = 608,
+                cfg: Config = DEFAULT) -> dict:
+    """The bench frame (``bench.py``'s scene: ``gaussians`` gaussians, seed
+    0, scales 0.004-0.02, from (0, 0, -3) at ``width`` x ``height``) binned
+    by the port under ``cfg``: its tight instance count, tile grid and
+    (evaluated, tested, live) pairs (:func:`blend_pairs`)."""
     rc = cfg.raster
     scene = random_scene(gaussians, seed=0, extent=1.5,
                          scale_range=(0.004, 0.02), num_labels=16,
@@ -422,8 +422,23 @@ def frame_report(peaks: dict, device: torch.device) -> dict:
                         tile_size=rc.tile_size, chunk=cfg.tiles.chunk,
                         alpha_min=rc.alpha_min, alpha_max=rc.alpha_max,
                         eps=rc.early_stop_eps)
+    return dict(frame=dict(gaussians=gaussians, width=width, height=height,
+                           tight_instances=int(binning.num_instances)),
+                instances=binning.inst_gauss.numel(), tiles=tx * ty,
+                pairs=pairs)
+
+
+def frame_report(peaks: dict, device: torch.device, *,
+                 gaussians: int = 100_000, width: int = 800,
+                 height: int = 608, cfg: Config = DEFAULT) -> dict:
+    """The SOL report: the bench frame of :func:`frame_pairs` (by default
+    ``bench.py``'s, 100k gaussians at 800x608), its pairs counted, and B1's
+    and B2's bounds at the measured rates."""
+    counted = frame_pairs(device, gaussians=gaussians, width=width,
+                          height=height, cfg=cfg)
+    pairs = counted["pairs"]
     rates = measured_rates(peaks)
-    args = (pairs, gaussians, binning.inst_gauss.numel(), tx * ty, width,
+    args = (pairs, gaussians, counted["instances"], counted["tiles"], width,
             height, rates)
     fwd, bwd = blend_bound("B1", *args), blend_bound("B2", *args)
     t_frame = (fwd[0] + bwd[0]) * 1e-3
@@ -439,8 +454,7 @@ def frame_report(peaks: dict, device: torch.device) -> dict:
         fwd_ops_per_live_pair=ALPHA_OPS + B1_OPS_PER_LIVE,
         bwd_ops_per_live_pair=ALPHA_OPS + B2_OPS_PER_LIVE,
         expf_per_live_pair=1,
-        frame=dict(gaussians=gaussians, width=width, height=height,
-                   tight_instances=int(binning.num_instances)),
+        frame=counted["frame"],
         pairs=dict(zip(("evaluated", "tested", "live"), pairs)),
         sol_fwd_ms=fwd[0], sol_fwd_bound_by=fwd[1],
         sol_bwd_ms=bwd[0], sol_bwd_bound_by=bwd[1],

@@ -248,8 +248,20 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert "traceEvents" in json.loads((tmp_path / "trace.json").read_text())
 
 
+def _stat(path):
+    """(exists, size, mtime_ns) of ``path``."""
+    if not path.exists():
+        return (False, None, None)
+    st = path.stat()
+    return (True, st.st_size, st.st_mtime_ns)
+
+
 def test_roofline_report_on_cpu(tmp_path, capsys):
-    before = sorted(p.name for p in REPO.iterdir())
+    # what the report itself could write besides --out: its default output
+    # and the JAX package's record (other test workers write elsewhere in
+    # the repository at the same time, so the root's listing proves nothing)
+    default_before = _stat(roofline.DEFAULT_OUT)
+    record = (REPO / "ROOFLINE.json").read_bytes()
     out = tmp_path / "roofline.json"
     assert roofline.main(["--out", str(out), "--device", "cpu"]) == 0
     rep = json.loads(out.read_text())
@@ -275,4 +287,5 @@ def test_roofline_report_on_cpu(tmp_path, capsys):
                                                 + rep["sol_bwd_ms"])
     assert rep["sol_mpix_per_s"] == pytest.approx(
         800 * 608 / rep["sol_frame_ms"] / 1e3)
-    assert sorted(p.name for p in REPO.iterdir()) == before
+    assert _stat(roofline.DEFAULT_OUT) == default_before
+    assert (REPO / "ROOFLINE.json").read_bytes() == record
