@@ -1,0 +1,9 @@
+"""Device milliseconds a unit of work (a view or a frame) launched inside the
+``gsplat.blend`` span: the blend (B1 and the background composite; B5,
+``gaussian_weights``, the visibility threshold and the job's [V, N] rows)."""
+
+from benchmark.metrics import _spans
+
+
+def read(r):
+    return _spans.device_ms(r, "blend")

@@ -1,0 +1,9 @@
+"""Device milliseconds a unit of work (a view or a frame) launched inside the
+``gsplat.vote`` span: the vote (``label/vote.py``: ``_vote_histogram`` and
+``votes_to_labels``)."""
+
+from benchmark.metrics import _spans
+
+
+def read(r):
+    return _spans.device_ms(r, "vote")

@@ -62,6 +62,7 @@ from gsplat_tpu_torch.io.cameras import Camera, look_at_camera
 from gsplat_tpu_torch.io.ply import load_scene_bytes
 from gsplat_tpu_torch.render.api import render
 from gsplat_tpu_torch.scene import DeviceLike, GaussianScene, resolve_device
+from gsplat_tpu_torch.utils.profiling import span
 
 # zlib level of the served PNG frames. Level 1 was to be kept if it
 # encoded the 2M scene's 800x608 frame in <= 5 ms on the card's host; it
@@ -348,20 +349,22 @@ class ViewerServer:
                      pan_x=0.0, pan_y=0.0, cam_idx=-1, pan_z=0.0,
                      selection=None) -> np.ndarray:
         """The [H, W, 3] uint8 frame of a view with the current edits."""
-        with self.lock, self._on_device():
+        with self.lock, self._on_device(), span("gsplat.frame"):
             if selection is not None:
                 # the client's ESC toggle rides the query string; with the
                 # mode on, apply_edits mixes the selected label red at 0.5
                 # (gaussians_selection.js:795-797)
                 self.edits.selection_mode = bool(selection)
-            scene = apply_edits(self.scene, self.edits)
+            with span("gsplat.edits"):
+                scene = apply_edits(self.scene, self.edits)
             cam = self._camera(theta, phi, radius, pan_x, pan_y, cam_idx,
                                pan_z)
             out = render(scene, cam, self.cfg, with_labels=labels,
                          device=self.device)
-            return assemble_frame(out["image"],
-                                  out["label_map"] if labels else None,
-                                  self.palette)
+            with span("gsplat.assemble"):
+                return assemble_frame(out["image"],
+                                      out["label_map"] if labels else None,
+                                      self.palette)
 
     def render_frame(self, theta, phi, radius, labels=False,
                      pan_x=0.0, pan_y=0.0, cam_idx=-1, pan_z=0.0,

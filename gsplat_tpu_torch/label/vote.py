@@ -45,6 +45,7 @@ from gsplat_tpu_torch.parallel.mesh import (Mesh, all_gather_shards,
 from gsplat_tpu_torch.render.api import _render_vis_impl
 from gsplat_tpu_torch.render.projection import CameraParams
 from gsplat_tpu_torch.scene import DeviceLike, GaussianScene, resolve_device
+from gsplat_tpu_torch.utils.profiling import span
 
 
 def _check_mesh(mesh) -> None:
@@ -195,6 +196,19 @@ def _seg_tensor(seg_maps, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(seg_maps, np.int32), device=device)
 
 
+def _upload_and_vote(means: torch.Tensor, cameras: Sequence[Camera],
+                     seg_maps, num_classes: int, device: torch.device,
+                     vis: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`_vote_histogram` over ``cameras`` and the host's ``seg_maps``,
+    uploaded to ``device`` in a span of their own. The uploads die with the
+    call, before the labels' reduction, a job's peak of device memory."""
+    with span("gsplat.upload"):
+        cams = _camera_tensors(cameras, device)
+        seg = _seg_tensor(seg_maps, device)
+    with span("gsplat.vote"):
+        return _vote_histogram(means, cams, seg, num_classes, vis=vis)
+
+
 def assign_labels(
     scene: GaussianScene,
     cameras: Sequence[Camera],
@@ -214,37 +228,45 @@ def assign_labels(
     vote is sharded (module docstring); the labels are the same."""
     _check_mesh(mesh)
     device = resolve_device(device)
-    if mesh is None:
-        votes = _vote_histogram(scene.means.to(device),
-                                _camera_tensors(cameras, device),
-                                _seg_tensor(seg_maps, device), num_classes)
-    else:
-        votes = _vote_sharded(scene.means.to(mesh.home),
-                              camera_batch(cameras),
-                              np.asarray(seg_maps, np.int32), num_classes,
-                              mesh).to(device)
-    if initial_votes is not None:
-        votes = votes + torch.as_tensor(np.asarray(initial_votes),
-                                        device=device).to(votes.dtype)
-    labels = votes_to_labels(votes)
+    with span("gsplat.label"):
+        if mesh is None:
+            votes = _upload_and_vote(scene.means.to(device), cameras,
+                                     seg_maps, num_classes, device)
+        else:
+            with span("gsplat.vote"):
+                votes = _vote_sharded(scene.means.to(mesh.home),
+                                      camera_batch(cameras),
+                                      np.asarray(seg_maps, np.int32),
+                                      num_classes, mesh).to(device)
+        with span("gsplat.vote"):
+            if initial_votes is not None:
+                votes = votes + torch.as_tensor(
+                    np.asarray(initial_votes), device=device).to(votes.dtype)
+            labels = votes_to_labels(votes)
     if return_votes:
         return labels, votes
     return labels
 
 
 def _visibility_group(scene: GaussianScene, cameras: Sequence[Camera],
-                      thr: float, cfg) -> torch.Tensor:
-    """[V, N] visibility for one resolution group (shared width/height):
-    one visibility render (kernel B5) per view."""
+                      thr: float, cfg, vis: torch.Tensor, idxs) -> None:
+    """The visibility of one resolution group (shared width/height) into
+    rows ``idxs`` of ``vis`` [V, N]: one visibility render (kernel B5) per
+    view. The [V, N] rows are the blend's too, so that every launch of a
+    job lies in a stage."""
     w, h = cameras[0].width, cameras[0].height
-    bg = torch.zeros(3, device=scene.device)
+    with span("gsplat.blend"):
+        bg = torch.zeros(3, device=scene.device)
     rows = []
     for cam in cameras:
         out = _render_vis_impl(scene, CameraParams.from_camera(
             cam, scene.device), bg, width=w, height=h, cfg=cfg,
             with_labels=False)
-        rows.append(out["gaussian_weight"] >= thr)
-    return torch.stack(rows)
+        with span("gsplat.blend"):
+            rows.append(out["gaussian_weight"] >= thr)
+    with span("gsplat.blend"):
+        rows = torch.stack(rows)    # the list goes before the scatter
+        vis[torch.tensor(idxs, device=vis.device)] = rows
 
 
 def visibility_masks(
@@ -267,29 +289,31 @@ def visibility_masks(
     _check_mesh(mesh)
     cfg = cfg or DEFAULT
     device = resolve_device(device)
-    if mesh is not None:
-        per = -(-len(cameras) // mesh.size)
-        padded = list(cameras) + [cameras[-1]] * (per * mesh.size
-                                                  - len(cameras))
-        rows = []
-        for s, dev in zip(mesh.local, mesh.devices):
-            with on_device(dev):
-                rows.append(visibility_masks(
-                    scene, padded[s * per:(s + 1) * per],
-                    visibility_threshold=visibility_threshold, cfg=cfg,
-                    device=dev))
-        vis = torch.cat(all_gather_shards(rows, mesh))[:len(cameras)]
-        return vis.to(device)
-    scene = scene.to(device)
-    groups: Dict[Tuple[int, int], list] = {}
-    for i, c in enumerate(cameras):
-        groups.setdefault((c.width, c.height), []).append(i)
-    vis = torch.zeros(len(cameras), scene.num_gaussians, dtype=torch.bool,
-                      device=device)
-    for idxs in groups.values():
-        vis[torch.tensor(idxs, device=device)] = _visibility_group(
-            scene, [cameras[i] for i in idxs], visibility_threshold, cfg)
-    return vis
+    with span("gsplat.visibility"):
+        if mesh is not None:
+            per = -(-len(cameras) // mesh.size)
+            padded = list(cameras) + [cameras[-1]] * (per * mesh.size
+                                                      - len(cameras))
+            rows = []
+            for s, dev in zip(mesh.local, mesh.devices):
+                with on_device(dev):
+                    rows.append(visibility_masks(
+                        scene, padded[s * per:(s + 1) * per],
+                        visibility_threshold=visibility_threshold, cfg=cfg,
+                        device=dev))
+            vis = torch.cat(all_gather_shards(rows, mesh))[:len(cameras)]
+            return vis.to(device)
+        scene = scene.to(device)
+        groups: Dict[Tuple[int, int], list] = {}
+        for i, c in enumerate(cameras):
+            groups.setdefault((c.width, c.height), []).append(i)
+        with span("gsplat.blend"):
+            vis = torch.zeros(len(cameras), scene.num_gaussians,
+                              dtype=torch.bool, device=device)
+        for idxs in groups.values():
+            _visibility_group(scene, [cameras[i] for i in idxs],
+                              visibility_threshold, cfg, vis, idxs)
+        return vis
 
 
 def assign_labels_visible(
@@ -316,24 +340,26 @@ def assign_labels_visible(
     docstring)."""
     _check_mesh(mesh)
     device = resolve_device(device)
-    if mesh is not None:
-        vis = visibility_masks(scene, cameras,
-                               visibility_threshold=visibility_threshold,
-                               cfg=cfg, mesh=mesh, device=mesh.home)
-        votes = _vote_sharded(scene.means.to(mesh.home),
-                              camera_batch(cameras),
-                              np.asarray(seg_maps, np.int32), num_classes,
-                              mesh, vis=vis).to(device)
-        labels = votes_to_labels(votes)
-        return (labels, votes) if return_votes else labels
-    scene = scene.to(device)
-    vis = visibility_masks(scene, cameras,
-                           visibility_threshold=visibility_threshold,
-                           cfg=cfg, device=device)
-    votes = _vote_histogram(scene.means, _camera_tensors(cameras, device),
-                            _seg_tensor(seg_maps, device), num_classes,
-                            vis=vis)
-    labels = votes_to_labels(votes)
+    with span("gsplat.label"):
+        if mesh is not None:
+            vis = visibility_masks(scene, cameras,
+                                   visibility_threshold=visibility_threshold,
+                                   cfg=cfg, mesh=mesh, device=mesh.home)
+            with span("gsplat.vote"):
+                votes = _vote_sharded(scene.means.to(mesh.home),
+                                      camera_batch(cameras),
+                                      np.asarray(seg_maps, np.int32),
+                                      num_classes, mesh, vis=vis).to(device)
+                labels = votes_to_labels(votes)
+        else:
+            scene = scene.to(device)
+            vis = visibility_masks(scene, cameras,
+                                   visibility_threshold=visibility_threshold,
+                                   cfg=cfg, device=device)
+            votes = _upload_and_vote(scene.means, cameras, seg_maps,
+                                     num_classes, device, vis=vis)
+            with span("gsplat.vote"):
+                labels = votes_to_labels(votes)
     if return_votes:
         return labels, votes
     return labels

@@ -34,6 +34,7 @@ from gsplat_tpu_torch.render.tiles import (FULL, Lattice, TileBinning,
                                            count_instances_tight,
                                            depth_qkeys)
 from gsplat_tpu_torch.scene import DeviceLike, GaussianScene, resolve_device
+from gsplat_tpu_torch.utils.profiling import span
 
 
 def pack_table(proj: Projected, labels: torch.Tensor) -> torch.Tensor:
@@ -209,26 +210,41 @@ def blend_scene_tiles(ptab: torch.Tensor, binning: TileBinning,
     return blend.BlendOutput(outs[0], outs[1], None, None)
 
 
+def _project_bin_pack(scene: GaussianScene, cam: CameraParams, width: int,
+                      height: int, cfg: Config
+                      ) -> Tuple[TileBinning, torch.Tensor]:
+    """The stages before the blend, each in its span: the projection (and
+    SH), the binning and the blend kernels' parameter table."""
+    rc = cfg.raster
+    with span("gsplat.project"):
+        proj = project(scene, cam, width, height, rc,
+                       z_near=cfg.camera.z_near, z_far=cfg.camera.z_far)
+    with span("gsplat.bin"):
+        tiles_x, tiles_y = tile_grid(width, height, rc.tile_size)
+        binning = bin_tiles(proj, tiles_x=tiles_x, tiles_y=tiles_y,
+                            tile_size=rc.tile_size)
+    with span("gsplat.pack"):
+        ptab = pack_table(proj, scene.labels)
+    return binning, ptab
+
+
 def _render_impl(scene: GaussianScene, cam: CameraParams,
                  background: torch.Tensor, *, width: int, height: int,
                  cfg: Config, with_labels: bool) -> Dict[str, torch.Tensor]:
     rc = cfg.raster
-    proj = project(scene, cam, width, height, rc,
-                   z_near=cfg.camera.z_near, z_far=cfg.camera.z_far)
+    binning, ptab = _project_bin_pack(scene, cam, width, height, cfg)
     tiles_x, tiles_y = tile_grid(width, height, rc.tile_size)
-    binning = bin_tiles(proj, tiles_x=tiles_x, tiles_y=tiles_y,
-                        tile_size=rc.tile_size)
-    ptab = pack_table(proj, scene.labels)
     settings = BlendSettings(
         tiles_x=tiles_x, tiles_y=tiles_y, tile_size=rc.tile_size,
         width=width, height=height, chunk=cfg.tiles.chunk,
         alpha_min=rc.alpha_min, alpha_max=rc.alpha_max,
         early_eps=rc.early_stop_eps)
-    out = blend_scene_tiles(ptab, binning, settings, with_labels)
-    transmit = out.transmittance
-    result = dict(image=out.rgb + transmit[..., None] * background,
-                  alpha=1.0 - transmit, transmittance=transmit,
-                  num_dropped=binning.num_dropped)
+    with span("gsplat.blend"):
+        out = blend_scene_tiles(ptab, binning, settings, with_labels)
+        transmit = out.transmittance
+        result = dict(image=out.rgb + transmit[..., None] * background,
+                      alpha=1.0 - transmit, transmittance=transmit,
+                      num_dropped=binning.num_dropped)
     if with_labels:
         result["best_weight"] = out.best_weight
         result["label_map"] = out.label
@@ -256,23 +272,20 @@ def _render_vis_impl(scene: GaussianScene, cam: CameraParams,
     of the occlusion-aware vote. No early stop (kernel B5 has none, as the
     JAX kernel has none). Not differentiable."""
     rc = cfg.raster
-    proj = project(scene, cam, width, height, rc,
-                   z_near=cfg.camera.z_near, z_far=cfg.camera.z_far)
+    binning, ptab = _project_bin_pack(scene, cam, width, height, cfg)
     tiles_x, tiles_y = tile_grid(width, height, rc.tile_size)
-    binning = bin_tiles(proj, tiles_x=tiles_x, tiles_y=tiles_y,
-                        tile_size=rc.tile_size)
-    ptab = pack_table(proj, scene.labels)
-    out, inst_w = blend.blend_tiles_vis(
-        ptab, binning.inst_gauss, binning.tile_bounds, tiles_x=tiles_x,
-        tiles_y=tiles_y, tile_size=rc.tile_size, width=width, height=height,
-        chunk=cfg.tiles.chunk, alpha_min=rc.alpha_min,
-        alpha_max=rc.alpha_max, with_labels=with_labels)
-    transmit = out.transmittance
-    result = dict(image=out.rgb + transmit[..., None] * background,
-                  alpha=1.0 - transmit, transmittance=transmit,
-                  gaussian_weight=gaussian_weights(
-                      inst_w, binning.inst_gauss, scene.num_gaussians),
-                  num_dropped=binning.num_dropped)
+    with span("gsplat.blend"):
+        out, inst_w = blend.blend_tiles_vis(
+            ptab, binning.inst_gauss, binning.tile_bounds, tiles_x=tiles_x,
+            tiles_y=tiles_y, tile_size=rc.tile_size, width=width,
+            height=height, chunk=cfg.tiles.chunk, alpha_min=rc.alpha_min,
+            alpha_max=rc.alpha_max, with_labels=with_labels)
+        transmit = out.transmittance
+        result = dict(image=out.rgb + transmit[..., None] * background,
+                      alpha=1.0 - transmit, transmittance=transmit,
+                      gaussian_weight=gaussian_weights(
+                          inst_w, binning.inst_gauss, scene.num_gaussians),
+                      num_dropped=binning.num_dropped)
     if with_labels:
         result["best_weight"] = out.best_weight
         result["label_map"] = out.label

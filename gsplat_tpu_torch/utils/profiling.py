@@ -10,10 +10,12 @@ Counterpart of ``gsplat_tpu.utils.profiling``:
 - ``graph_ms``: the card's milliseconds per call of a short kernel's
   wrapper with the host's launch cost taken out, by replaying a CUDA graph
   of many calls.
-- ``Throughput``: turns step times into rate metrics (Mpix/s, gaussians
-  blended/s, steps/s).
+- ``span``: a named range of the program (the ``gsplat.*`` stages of the
+  render, the vote and the viewer) in a running profiler's trace, on the
+  profiler's clock beside the card's kernels; nothing when no profiler
+  runs.
 - ``trace``: a ``torch.profiler`` trace of the CPU and, where there is a
-  card, CUDA activity, written as a Chrome trace.
+  card, CUDA activity, written as a Chrome trace with the spans in it.
 """
 
 from __future__ import annotations
@@ -23,11 +25,24 @@ import os
 import statistics
 import time
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Optional
 
 import torch
+from torch.profiler import record_function
 
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_trace"
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range in the profiler's trace; nothing when no profiler runs.
+
+    Entering ``record_function`` costs microseconds even with no profiler,
+    so it is entered only while one records (the check costs a tenth of a
+    microsecond). The span's parent is the span enclosing it on the same
+    thread; the profiler keeps it and writes it with the trace."""
+    return (record_function(name) if torch.autograd._profiler_enabled()
+            else _OFF)
 
 
 def fetch_sync(x) -> float:
@@ -108,37 +123,6 @@ def graph_ms(fn: Callable, launches: int = 20, reps: int = 10) -> float:
         times.append(start.elapsed_time(end) / launches)
     del graph
     return statistics.median(times)
-
-
-class Throughput:
-    """Accumulate step timings into named rate metrics."""
-
-    def __init__(self) -> None:
-        self.records: Dict[str, Dict[str, float]] = {}
-
-    def record(self, name: str, seconds: float, *,
-               pixels: Optional[int] = None,
-               gaussians_blended: Optional[int] = None) -> Dict[str, float]:
-        rec: Dict[str, float] = {"seconds": seconds,
-                                 "steps_per_s": 1.0 / seconds}
-        if pixels is not None:
-            rec["mpix_per_s"] = pixels / seconds / 1e6
-        if gaussians_blended is not None:
-            rec["gaussians_blended_per_s"] = gaussians_blended / seconds
-        self.records[name] = rec
-        return rec
-
-    def report(self) -> str:
-        lines = []
-        for name, rec in self.records.items():
-            parts = [f"{rec['seconds']*1e3:.2f} ms"]
-            if "mpix_per_s" in rec:
-                parts.append(f"{rec['mpix_per_s']:.1f} Mpix/s")
-            if "gaussians_blended_per_s" in rec:
-                parts.append(
-                    f"{rec['gaussians_blended_per_s']/1e9:.2f} G splats/s")
-            lines.append(f"{name}: " + ", ".join(parts))
-        return "\n".join(lines)
 
 
 @contextlib.contextmanager

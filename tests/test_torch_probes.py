@@ -223,10 +223,6 @@ def test_device_timer_runs():
 
     dt = profiling.device_timer(step, (x,), iters=3)
     assert dt > 0
-    tp = profiling.Throughput()
-    rec = tp.record("step", dt, pixels=1024)
-    assert rec["mpix_per_s"] > 0
-    assert "step" in tp.report()
     assert profiling.fetch_sync(torch.tensor([2.5, 1.0])) == 2.5
 
 
