@@ -53,7 +53,12 @@ B. the twins of the repository's two measurement programs at their
    card against the CPU on two small scenes; B1 at early_stop_eps 0 equal
    to B5 bit for bit (image, T, best weight, label); the fold's boundary
    gathers (``render.api.segment_sums``) equal to their plain version bit
-   for bit on the frame's fold; then B1, B5 and B2
+   for bit on the frame's fold; the projection kernel
+   (``render.projection.project``, ``csrc/project.cu``) equal to
+   ``_project_plain`` bit for bit in every field, one launch, timed beside
+   the plain version and its bound by bytes (here, on the 2M view of
+   phase 3, and on scenes of SH degree 3 at the benchmark's sizes: 1.7M
+   gaussians at 980x545, 3M at 1237x822); then B1, B5 and B2
    against their plain versions (the same bars) on the thin-splat frame
    (``synthetic.thin_splats_projection``: 3,000 thin, rotated, high-opacity
    splats on the 16-px grid lines, 200x136), the skip test's hardest input;
@@ -242,7 +247,8 @@ from gsplat_tpu_torch.render.api import (_render_impl, _segment_sums_plain,
                                          enumeration_rows,
                                          fold_instance_rows, pack_table,
                                          render, segment_sums)
-from gsplat_tpu_torch.render.projection import (CameraParams, project,
+from gsplat_tpu_torch.render.projection import (CameraParams, Projected,
+                                                _project_plain, project,
                                                 tile_grid)
 from gsplat_tpu_torch.scene import color_to_dc, dc_color, scene_from_numpy
 from gsplat_tpu_torch.utils import (checkpoint, roofline, scan_probe,
@@ -869,6 +875,55 @@ def check_segment_sums(cs, enum_start, enum_cnt, tag: str) -> float:
     return 0.0
 
 
+# (gaussians, width, height) of the benchmark's scenes (SH degree 3):
+# Tanks and Temples truck, Mip-NeRF 360 bicycle
+PROJECT_SIZES = ((1_700_000, 980, 545), (3_000_000, 1237, 822))
+
+
+def project_bytes(scene) -> int:
+    """Bytes the projection must move: each gaussian's input rows read once
+    (means, log-scales, quaternion, opacity, SH) and its 14 f32 fields and
+    valid byte written once."""
+    read = sum(getattr(scene, f).element_size() * getattr(scene, f)[0].numel()
+               for f in ("means", "log_scales", "quats", "opacities", "sh"))
+    return scene.num_gaussians * (read + 4 * (len(Projected._fields) - 1)
+                                  + 1)
+
+
+def check_project(scene, cam, tag: str, card: str) -> dict:
+    """The projection kernel against ``_project_plain`` on one view: every
+    field equal bit for bit, one launch; then its time between CUDA events
+    and replayed from a CUDA graph, the plain version's and the bound by
+    bytes at the published HBM rate."""
+    args = (scene, CameraParams.from_camera(cam, scene.device), cam.width,
+            cam.height, RC)
+    kw = dict(z_near=CFG.camera.z_near, z_far=CFG.camera.z_far)
+    before = project.launches
+    got = project(*args, **kw)
+    want = _project_plain(*args, sh_degree=None, **kw)
+    launched = project.launches - before
+    differ = [f for f in Projected._fields
+              if not torch.equal(getattr(got, f).view(torch.uint8),
+                                 getattr(want, f).view(torch.uint8))]
+    del got, want
+    ms, runs = cuda_ms(lambda: project(*args, **kw))
+    plain_ms, _ = cuda_ms(lambda: _project_plain(*args, sh_degree=None, **kw),
+                          reps=5, warmup=1)
+    nbytes = project_bytes(scene)
+    row = {"gaussians": scene.num_gaussians,
+           "sh_degree": math.isqrt(scene.sh.shape[1]) - 1,
+           "size": [cam.width, cam.height], "ms": ms, "runs_ms": runs,
+           "graph_ms": graph_ms(lambda: project(*args, **kw)),
+           "plain_ms": plain_ms, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log({"check": "project vs plain", "frame": tag, "fields_differ": differ,
+         "launches": launched, **row, "card": card})
+    if differ or launched != 1:
+        raise AssertionError(f"project differs from its plain version in "
+                             f"{differ} on {tag} ({launched} launches)")
+    return row
+
+
 def check_gradients(device) -> None:
     """Scene gradients through render on the card against the CPU's:
     random 2000-gaussian scene, 128x96, l2 against a fixed target; each of
@@ -899,7 +954,7 @@ def check_gradients(device) -> None:
 
 
 WRAPPERS = (tiles.enum_keys, blend.blend_tiles_fwd, blend.blend_tiles_bwd,
-            blend.cumsum_rows, segment_sums, blend.blend_tiles_vis,
+            blend.cumsum_rows, segment_sums, blend.blend_tiles_vis, project,
             roofline.fma_chains,
             roofline.expf_chains, scan_probe.flat_scan_kernel,
             scan_probe.grouped_scan_kernel)
@@ -2219,12 +2274,13 @@ def viewer_session(scene, ply_path: Path, work: Path, device,
                                  "the first")
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
-        for name in ("enum_keys", "blend_tiles_fwd"):
+        for name in ("project", "enum_keys", "blend_tiles_fwd"):
             if launches[name] != s.renders:
                 raise AssertionError(f"{name} launched {launches[name]} "
                                      f"times for {s.renders} /render")
         others = {k: v for k, v in launches.items()
-                  if k not in ("enum_keys", "blend_tiles_fwd") and v}
+                  if k not in ("project", "enum_keys", "blend_tiles_fwd")
+                  and v}
         if others:
             raise AssertionError(f"the viewer launched {others}")
 
@@ -2766,7 +2822,7 @@ def quality_phase(card) -> dict:
 
 _EXAMPLE_CHILD = r"""
 import json, runpy, sys
-from gsplat_tpu_torch.render import blend, tiles
+from gsplat_tpu_torch.render import blend, projection, tiles
 from gsplat_tpu_torch.render.api import segment_sums
 
 path = sys.argv[1]
@@ -2777,7 +2833,8 @@ try:
 except SystemExit as stop:
     code = stop.code
 wrappers = (tiles.enum_keys, blend.blend_tiles_fwd, blend.blend_tiles_bwd,
-            blend.cumsum_rows, segment_sums, blend.blend_tiles_vis)
+            blend.cumsum_rows, segment_sums, blend.blend_tiles_vis,
+            projection.project)
 print("LAUNCHES " + json.dumps({w.__name__: w.launches for w in wrappers}))
 sys.exit(code)
 """
@@ -2987,6 +3044,8 @@ def main(argv=None) -> int:
     check_b1_equals_b5(bench, "bench")
     err_fold = check_segment_sums(bench.fold_cs(), bench.binning.enum_start,
                                   bench.binning.enum_cnt, "bench")
+    proj_rows = {"bench": check_project(bench.scene, bench.cam, "bench",
+                                        card)}
     check_small_labeling(device)
     thin = Frame.from_projection(*thin_splats_projection(
         3000, width=200, height=136, seed=7, device=device), 200, 136)
@@ -3029,7 +3088,7 @@ def main(argv=None) -> int:
               for cam in cams]
     launches = read_launches()
     log({"phase": "main path", "views": len(cams), "launches": launches})
-    for name in ("enum_keys", "blend_tiles_fwd"):
+    for name in ("project", "enum_keys", "blend_tiles_fwd"):
         n = launches[name]
         if n != len(cams):
             raise AssertionError(f"{name} launched {n} times for "
@@ -3066,6 +3125,15 @@ def main(argv=None) -> int:
     err_b5 = max(err_b5, check_b5(big, "2M view 0"))
     check_b1_equals_b5(big, "2M view 0")
     log({"main_frame_counts": big.instance_counts()})
+    proj_rows["2M view 0"] = check_project(scene, cams[0], "2M view 0", card)
+    for n, w, h in PROJECT_SIZES:
+        sized = random_scene(n, seed=n, extent=1.5,
+                             scale_range=(0.002, 0.008), sh_degree=3,
+                             device=device)
+        proj_rows[f"{n} SH 3"] = check_project(
+            sized, look_at_camera((2.5, 0.3, 0.0), (0, 0, 0), width=w,
+                                  height=h), f"{n} SH 3, {w}x{h}", card)
+        del sized
 
     # L. labeling path: the label CLI over 311 views of the 2M scene
     label_launches, label_times = label_main_path(scene, device, card)
@@ -3268,6 +3336,13 @@ def main(argv=None) -> int:
          "graph_ms": row["segment_sums graph"],
          "plain_ms": row["segment_sums plain"],
          "bound_ms": fb[0], "bound_by": fb[1], "library_ms": None},
+        {"name": "project", "route": "cuda",
+         "source": "gsplat_tpu_torch/csrc/project.cu",
+         "replaces": "gsplat_tpu/render/projection.py:project and "
+                     "gsplat_tpu/render/sh.py:eval_sh_soa (XLA glue)",
+         "launches": launches["project"], "max_abs_err": 0.0,
+         **proj_rows["2M view 0"], "by_frame": proj_rows,
+         "library_ms": None},
         {"name": "blend_tiles_vis", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/blend_vis.cu",
          "replaces": "gsplat_tpu/render/blend_pallas.py:250",
@@ -3277,13 +3352,15 @@ def main(argv=None) -> int:
          "library_ms": None},
     ]
     # "launches" counts each kernel on the path that brought it: the 8-view
-    # render for B4 and B1, the 10 training steps for B2, B3 and the fold's
-    # boundary gathers (XLA glue in the JAX package, no TPU kernel), the
-    # visible-mode label run of 311 views for B5, the roofline report for
-    # P1 and the scan probe for P2; every path's counts are in
-    # launches_by_path. No single PyTorch call computes B4, B1, B2, B5 or
-    # the gathers (B5's segment max onto gaussians is a scatter_reduce
-    # outside the kernel), hence no library time; B3's is the faster of
+    # render for B4, B1 and the projection (XLA glue in the JAX package, no
+    # TPU kernel; its row times the 2M view, by_frame every checked frame),
+    # the 10 training steps for B2, B3 and the fold's boundary gathers (XLA
+    # glue too), the visible-mode label run of 311 views for B5, the
+    # roofline report for P1 and the scan probe for P2; every path's counts
+    # are in launches_by_path. No single PyTorch call computes B4, B1, B2,
+    # B5, the projection or the gathers (B5's segment max onto gaussians is
+    # a scatter_reduce outside the kernel), hence no library time; B3's is
+    # the faster of
     # torch.cumsum along dim 0 of the [B, 16] rows (PyTorch's outer-dimension
     # scan) and of the column-major copy along dim 1, the copy included.
     # Bounds take the P1 probes' rates, those of the data sheet beside them.

@@ -77,6 +77,9 @@ SIGNATURES = {
     "peak_probe": ("gsplat_peak_probe",
                    [_I, _P, _I, _P, _I, _I, _F, _F, _P]),
     "scan_probe": ("gsplat_scan_probe", [_I, _I, _P, _I, _P, _I, _P]),
+    "project": ("gsplat_project",
+                [_P] * 5 + [_I] * 3 + [_P] * 4 + [_I] * 2 + [_F] * 6
+                + [_P] * 3),
 }
 
 _functions: Dict[str, ctypes._CFuncPtr] = {}

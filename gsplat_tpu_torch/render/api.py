@@ -9,7 +9,9 @@ kernels or their plain versions run. The blend is one
 the counterpart of ``blend_scene_windows`` and its custom VJP): forward
 kernel B1, backward kernel B2 and the gradient fold over kernel B3 and the
 boundary-gather kernel of :func:`segment_sums`.
-Projection and SH are plain torch, and autograd derives their VJP.
+Projection and SH (``render/projection.py::project``) are one launch of
+``csrc/project.cu`` where no gradient is recorded, else plain torch whose
+VJP autograd derives.
 ``render(impl="pallas_vis")`` is the labeler's visibility render over kernel
 B5 (:func:`_render_vis_impl`); ``render(impl="dense")`` the small-scene
 oracle of ``render/blend_dense.py``. :func:`measure_budgets` and

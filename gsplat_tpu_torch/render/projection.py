@@ -1,11 +1,18 @@
-"""Differentiable gaussian projection (plain torch; autograd derives the VJP).
+"""Gaussian projection: the plain differentiable torch code, and one CUDA
+kernel for calls that record no gradient.
 
 Counterpart of ``gsplat_tpu.render.projection``: quat -> rotation -> Sigma3,
 camera transform, perspective Jacobian, Sigma2 = (J W) Sigma3 (J W)^T + blur,
-conic, opacity-aware cutoff, culling mask. It keeps the JAX package's
-elementwise structure-of-arrays form (every field [N], no [N, 3, 3] matmul),
-so no matrix product and therefore no TF32 rounding can enter on the card.
-Semantics are those of the NumPy oracle ``gsplat_tpu/ref/rasterizer.py``.
+conic, opacity-aware cutoff, culling mask, SH colour. :func:`_project_plain`
+keeps the JAX package's elementwise structure-of-arrays form (every field
+[N], no [N, 3, 3] matmul), so no matrix product and therefore no TF32
+rounding can enter on the card; autograd derives its VJP. Semantics are
+those of the NumPy oracle ``gsplat_tpu/ref/rasterizer.py``.
+
+:func:`project` chooses from what its inputs show: where autograd records
+(grad mode on and an input that requires grad) the plain code runs, on any
+device; otherwise CPU tensors take the plain code and CUDA tensors one
+launch of ``csrc/project.cu``, equal to the plain code bit for bit.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.config import RasterConfig
 from gsplat_tpu_torch.io.cameras import Camera
 from gsplat_tpu_torch.render.sh import eval_sh_soa
@@ -115,18 +123,10 @@ def _sigma3_entries(log_scales: torch.Tensor, quats: torch.Tensor):
     return s00, s01, s02, s11, s12, s22
 
 
-def project(
-    scene: GaussianScene,
-    cam: CameraParams,
-    width: int,
-    height: int,
-    cfg: RasterConfig = RasterConfig(),
-    *,
-    z_near: float = 0.2,
-    z_far: float = 200.0,
-    sh_degree: int | None = None,
-) -> Projected:
-    """Project all gaussians into one camera (differentiable)."""
+def _project_plain(scene: GaussianScene, cam: CameraParams, width: int,
+                   height: int, cfg: RasterConfig, *, z_near: float,
+                   z_far: float, sh_degree: int | None) -> Projected:
+    """Plain PyTorch version of :func:`project` (differentiable)."""
     means = scene.means
     mx, my, mz = means[:, 0], means[:, 1], means[:, 2]
     R = cam.rot
@@ -199,6 +199,94 @@ def project(
     return Projected(u=u, v=v, ca=ca, cb=cb, cc=cc, depth=z, radius=radius,
                      ex=ex, ey=ey, qmax=qmax, red=red, green=green,
                      blue=blue, opacity=opacity, valid=valid)
+
+
+def _records_grad(scene: GaussianScene, cam: CameraParams) -> bool:
+    """Whether autograd records through a projection of these inputs."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (scene.means, scene.log_scales, scene.quats,
+                                  scene.opacities, scene.sh, *cam))
+
+
+def _sh_bands(k: int, sh_degree: int | None) -> int:
+    """SH bands past the DC term that :func:`eval_sh_soa` evaluates."""
+    if sh_degree is not None:
+        k = min(k, (sh_degree + 1) ** 2)
+    return sum(k > b for b in (1, 4, 9))
+
+
+def project(
+    scene: GaussianScene,
+    cam: CameraParams,
+    width: int,
+    height: int,
+    cfg: RasterConfig = RasterConfig(),
+    *,
+    z_near: float = 0.2,
+    z_far: float = 200.0,
+    sh_degree: int | None = None,
+) -> Projected:
+    """Project all gaussians into one camera.
+
+    Where autograd records (grad mode on and any of the scene's five float
+    fields or the camera's tensors requiring grad) this is the plain
+    differentiable code, :func:`_project_plain`. Otherwise the inputs must be
+    contiguous f32: means and log-scales [N, 3], quaternions [N, 4],
+    opacities [N], SH [N, K, 3] with K in 1, 4, 9, 16, the camera's rotation
+    [3, 3], position [3] and focal lengths [], all on one device. CPU tensors
+    take the plain code; CUDA tensors one launch of ``csrc/project.cu``
+    (one thread a gaussian, its rows staged through shared memory with
+    16-byte loads; bound by bytes), whose fields are rows of one [14, N]
+    array and equal the plain code's bit for bit. Replaces XLA glue, not a
+    Pallas kernel."""
+    kw = dict(z_near=z_near, z_far=z_far, sh_degree=sh_degree)
+    if _records_grad(scene, cam):
+        return _project_plain(scene, cam, width, height, cfg, **kw)
+    means, sh = scene.means, scene.sh
+    n = means.shape[0]
+    shapes = ((means, (n, 3)), (scene.log_scales, (n, 3)),
+              (scene.quats, (n, 4)), (scene.opacities, (n,)),
+              (cam.rot, (3, 3)), (cam.pos, (3,)), (cam.fx, ()),
+              (cam.fy, ()))
+    tensors = [t for t, _ in shapes] + [sh]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("project takes f32 scene and camera tensors")
+    if any(t.shape != shape for t, shape in shapes) or not (
+            sh.dim() == 3 and sh.shape[0] == n and sh.shape[2] == 3
+            and sh.shape[1] in (1, 4, 9, 16)):
+        raise ValueError("project takes means, log_scales [N, 3], quats "
+                         "[N, 4], opacities [N], sh [N, K, 3] with K in "
+                         "(1, 4, 9, 16), rot [3, 3], pos [3], fx, fy []")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("project takes contiguous tensors")
+    if any(t.device != means.device for t in tensors):
+        raise ValueError("project takes tensors on one device")
+    if means.device.type == "cpu":
+        return _project_plain(scene, cam, width, height, cfg, **kw)
+    if means.device.type != "cuda":
+        raise ValueError(f"project: no kernel for {means.device}")
+    if n >= 2 ** 31:
+        raise ValueError("project takes fewer than 2^31 gaussians")
+    out = torch.empty(len(Projected._fields) - 1, n, device=means.device)
+    valid = torch.empty(n, dtype=torch.bool, device=means.device)
+    if n > 0:
+        fn = _kernels.function("project")
+        bands = _sh_bands(sh.shape[1], sh_degree)
+        # opacity / alpha_min on the card is opacity * f32(1 / alpha_min),
+        # the reciprocal taken in double: the kernel takes it as an argument
+        err = fn(means.data_ptr(), scene.log_scales.data_ptr(),
+                 scene.quats.data_ptr(), scene.opacities.data_ptr(),
+                 sh.data_ptr(), n, sh.shape[1], bands,
+                 *(t.data_ptr() for t in cam), width, height, z_near,
+                 z_far, cfg.cov2d_blur, cfg.alpha_min, 1.0 / cfg.alpha_min,
+                 cfg.sigma_cutoff, out.data_ptr(), valid.data_ptr(),
+                 _kernels.stream(means.device))
+        project.launches += 1
+        _kernels.check("project", err)
+    return Projected(*out.unbind(0), valid=valid)
+
+
+project.launches = 0
 
 
 def tile_grid(width: int, height: int, tile_size: int) -> Tuple[int, int]:
