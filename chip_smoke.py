@@ -36,8 +36,8 @@ B. the twins of the repository's two measurement programs at their
    value finite and positive, each ``vs_baseline`` of the bench in (0,
    1.05] and its SOL phase P's, no pair shortfall (exit 1), ``num_dropped``
    0, the bench step's image (both modes) equal bit for bit to
-   ``render``'s of the same scene and camera; B4, B1, B2, B3 and the
-   gathers launched in the bench, B4 and B5 in the visible vote; then, on
+   ``render``'s of the same scene and camera; B4, B1, B2 and the
+   fold launched in the bench, B4 and B5 in the visible vote; then, on
    the visible vote's view 0 (tiles of up to ~70k instances), B4 keys
    equal to its plain version's, B5 within 1e-5 of its plain version, and
    B1 at early_stop_eps 0 equal to B5 bit for bit;
@@ -53,7 +53,12 @@ B. the twins of the repository's two measurement programs at their
    card against the CPU on two small scenes; B1 at early_stop_eps 0 equal
    to B5 bit for bit (image, T, best weight, label); the fold's boundary
    gathers (``render.api.segment_sums``) equal to their plain version bit
-   for bit on the frame's fold; the projection kernel
+   for bit on the frame's fold; the fold kernel (``render.api.fold_rows``)
+   equal to its plain version bit for bit and from call to call, 0 on every
+   all-zero segment, timed (CUDA events and a CUDA graph) beside its plain
+   version and its bound by bytes, on the frame's fold and on a full-size
+   training view of the benchmark's ``m360-fit`` deployment (3M gaussians,
+   1237x822); the projection kernel
    (``render.projection.project``, ``csrc/project.cu``) equal to
    ``_project_plain`` bit for bit in every field, one launch, timed beside
    the plain version and its bound by bytes (here, on the 2M view of
@@ -95,19 +100,18 @@ L. the labeling path at real size, through ``gsplat_tpu_torch.cli.label``:
    ``make_adaptive_multiview_train_step`` over 4 views of the 2M scene,
    perturbed, padded to 1.25x capacity, with one ``densify_and_prune`` and
    ``zero_adam_rows`` after step 5; loss falls, parameters finite, nothing
-   dropped, B4, B1, B2, B3 and the boundary gathers launched once per view
-   per step; then one single-view ``make_train_step`` step timed and split
-   into its stages, the fold into its scatter, B3 and the gathers (each
-   torch op of their plain version timed alone, and the kernel held
-   against it bit for bit on the training state, whose dead and
-   off-screen gaussians have no slot);
+   dropped, B4, B1, B2 and the fold launched once per view per step; then
+   one single-view ``make_train_step`` step timed and split into its
+   stages, the fold into its scatter and ``fold_rows`` (the kernel held
+   against its plain version bit for bit on the training state, whose dead
+   and off-screen gaussians have no slot);
 T. the training CLI at real size: 16 orbit views of the 2M scene rendered
    at 1600x1216 and written as PNG, an init PLY of the scene moved by
    seeded noise, ``gsplat_tpu_torch.cli.train`` for 120 steps at 800x608
    (``--scale 0.5``: the Pillow-exact resize) with densify at 40 and 80, an
    opacity reset at 60 and checkpoints at 50 and 100, then the same command
-   again, which resumes at step 101; B4, B1, B2, B3 and the gathers launched
-   once a step, the loss falling (each view's second visit against its
+   again, which resumes at step 101; B4, B1, B2 and the fold launched once
+   a step, the loss falling (each view's second visit against its
    first, before any densify or reset), the resumed run's last loss within
    1e-3 relative, the same alive count in both PLYs; each run's time split into
    target load, init PLY read (native codec), steps, densify, checkpoint
@@ -155,10 +159,10 @@ M. the multi-device path (``gsplat_tpu_torch/parallel/``) on phase 3's 2M
    bit-equal to ``render`` (image, transmittance, best weight, label map);
    one sharded ``make_train_step`` step at phase 4's capacity, its loss
    bit-equal to the single-device step's and every gradient within 1e-3 of
-   its peak; B4, B1, B2, B3 and the gathers launched once each in the step.
+   its peak; B4, B1, B2 and the fold launched once each in the step.
    M2: D = 2, 4 and 8 logical shards on the card, each render bit-equal to
-   ``render``; one sharded step at D = 4, held as M1's is (B4, B1, B2, B3
-   and the gathers under a lattice of 2x2 shards, once a shard); then ``parallel.scaling``'s report at D = 1, 2, 4, 8 (each
+   ``render``; one sharded step at D = 4, held as M1's is (B4, B1, B2 and
+   the fold under a lattice of 2x2 shards, once a shard); then ``parallel.scaling``'s report at D = 1, 2, 4, 8 (each
    shard's B4, B1 and B2 replayed from a CUDA graph, max and mean over the
    shards; ``inst_eff``, ``batch_eff``; rows and bytes each shard receives
    against the all-gather's). M3: at D = 4, the center and the visible vote
@@ -168,7 +172,7 @@ M. the multi-device path (``gsplat_tpu_torch/parallel/``) on phase 3's 2M
    D-card time;
 G. the parity gate, ``gsplat_tpu_torch.utils.verify_parity``: the image,
    label map and scene gradients of ``scripts/verify_tpu.py``'s problem
-   (4,000 gaussians, 160x128) through B4, B1, B2, B3 and the gathers on the
+   (4,000 gaussians, 160x128) through B4, B1, B2 and the fold on the
    card against the dense autograd reference on the CPU; fails past
    ``PARITY_TPU.json``'s bars (pixels 1e-3, gradients 1e-3 of each peak),
    a label map not equal or ``num_dropped`` not 0;
@@ -243,10 +247,11 @@ from gsplat_tpu_torch.parallel import bootstrap, scaling
 from gsplat_tpu_torch.parallel import mesh as mesh_lib
 from gsplat_tpu_torch.parallel.render_sharded import render_sharded
 from gsplat_tpu_torch.render import blend, tiles
-from gsplat_tpu_torch.render.api import (_render_impl, _segment_sums_plain,
+from gsplat_tpu_torch.render.api import (_fold_rows_plain, _render_impl,
+                                         _segment_sums_plain,
                                          enumeration_rows,
-                                         fold_instance_rows, pack_table,
-                                         render, segment_sums)
+                                         fold_instance_rows, fold_rows,
+                                         pack_table, render, segment_sums)
 from gsplat_tpu_torch.render.projection import (CameraParams, Projected,
                                                 _project_plain, project,
                                                 tile_grid)
@@ -255,7 +260,6 @@ from gsplat_tpu_torch.utils import (checkpoint, roofline, scan_probe,
                                     train_quality, verify_parity)
 from gsplat_tpu_torch.utils import bench as bench_twin
 from gsplat_tpu_torch.utils import bench_vote as vote_twin
-from gsplat_tpu_torch.utils.blend_probe import segment_sum_ops
 from gsplat_tpu_torch.utils.profiling import graph_ms
 from gsplat_tpu_torch.utils.roofline import B4_OPS_PER_SLOT, HBM_BYTES_PER_S
 
@@ -322,7 +326,7 @@ TRAIN_CLI_SIZE = (1600, 1216)
 TRAIN_CLI_ITERS = 120
 TRAIN_CLI_RESUME = 101
 TRAIN_CLI_KERNELS = ("enum_keys", "blend_tiles_fwd", "blend_tiles_bwd",
-                     "cumsum_rows", "segment_sums")
+                     "fold_rows")
 
 # Phase K, clustering: k-means over the 2M scene at the reference's k = 10;
 # region growing over its first 100k gaussians at the reference's
@@ -875,6 +879,82 @@ def check_segment_sums(cs, enum_start, enum_cnt, tag: str) -> float:
     return 0.0
 
 
+def fold_rows_bytes(rows, enum_start) -> int:
+    """Bytes the fold must move: every row read once, each gaussian's
+    start and count read and its row written."""
+    return rows.shape[0] * rows.shape[1] * 4 + enum_start.numel() * (
+        8 + rows.shape[1] * 4)
+
+
+def check_fold_rows(rows, enum_start, enum_cnt, tag: str, card) -> dict:
+    """The fold kernel (``render.api.fold_rows``) against its plain
+    version, bit for bit, one launch, equal from call to call, 0 on every
+    gaussian whose rows are all 0; then its time between CUDA events and
+    replayed from a CUDA graph, the plain version's, and the bound by
+    bytes at the published HBM rate. Returns the row."""
+    seg = (enum_start, enum_cnt)
+    before = fold_rows.launches
+    got = fold_rows(rows, *seg)
+    launched = fold_rows.launches - before
+    again = fold_rows(rows, *seg)
+    want = _fold_rows_plain(rows, *seg)
+    owner = torch.repeat_interleave(
+        torch.arange(enum_cnt.numel(), device=rows.device),
+        enum_cnt.long())
+    nonzero = torch.zeros(enum_cnt.numel(), dtype=torch.long,
+                          device=rows.device).index_add_(
+        0, owner, rows[:owner.numel()].ne(0).any(1).long())
+    zero = (enum_cnt > 0) & (nonzero == 0)
+    bits = lambda t: t.view(torch.int32)
+    equal = torch.equal(bits(got), bits(want))
+    same = torch.equal(bits(got), bits(again))
+    moved = int(got[zero].ne(0).any(1).sum())
+    del got, again, want
+    ms, runs = cuda_ms(lambda: fold_rows(rows, *seg))
+    plain_ms, _ = cuda_ms(lambda: _fold_rows_plain(rows, *seg), reps=3,
+                          warmup=1)
+    nbytes = fold_rows_bytes(rows, enum_start)
+    row = {"rows": rows.shape[0], "gaussians": enum_start.numel(),
+           "all_zero_segments": int(zero.sum()), "ms": ms, "runs_ms": runs,
+           "graph_ms": graph_ms(lambda: fold_rows(rows, *seg)),
+           "plain_ms": plain_ms, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log({"check": "fold_rows vs plain", "frame": tag, "bit_equal": equal,
+         "two_calls_bit_equal": same, "zero_segments_moved": moved,
+         "launches": launched, **row, "card": card})
+    if not (equal and same and moved == 0 and launched == 1):
+        raise AssertionError(f"fold_rows differs from its plain version or "
+                             f"moves zero segments at {tag}")
+    return row
+
+
+def fold_phase(bench, device, card) -> dict:
+    """The fold kernel on the bench frame's B2 rows and on a full-size
+    training view of the benchmark's ``m360-fit`` deployment (3M gaussians
+    of SH degree 3, the first view of its rig at 1237x822), each in
+    enumeration order. Returns the rows by frame."""
+    from benchmark import scenes
+    from benchmark.common import program_camera
+    from gsplat_tpu_torch.scene import GaussianScene
+    out = {"bench": check_fold_rows(
+        bench.fold_rows(), bench.binning.enum_start, bench.binning.enum_cnt,
+        "bench", card)}
+    cfg = json.loads((REPO / "benchmark" / "configs" / "m360-fit.json")
+                     .read_text())
+    p = scenes.scene(cfg, 20, device)
+    fr = Frame(GaussianScene(p["means"], p["log_scales"], p["quats"],
+                             p["opacities"], p["sh"], p["labels"]),
+               program_camera(scenes.ring(cfg)[0]))
+    del p
+    out["m360 training view"] = check_fold_rows(
+        fr.fold_rows(), fr.binning.enum_start, fr.binning.enum_cnt,
+        "m360 training view", card)
+    del fr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # (gaussians, width, height) of the benchmark's scenes (SH degree 3):
 # Tanks and Temples truck, Mip-NeRF 360 bicycle
 PROJECT_SIZES = ((1_700_000, 980, 545), (3_000_000, 1237, 822))
@@ -954,7 +1034,8 @@ def check_gradients(device) -> None:
 
 
 WRAPPERS = (tiles.enum_keys, blend.blend_tiles_fwd, blend.blend_tiles_bwd,
-            blend.cumsum_rows, segment_sums, blend.blend_tiles_vis, project,
+            blend.cumsum_rows, segment_sums, fold_rows,
+            blend.blend_tiles_vis, project,
             roofline.fma_chains,
             roofline.expf_chains, scan_probe.flat_scan_kernel,
             scan_probe.grouped_scan_kernel)
@@ -1041,7 +1122,7 @@ def train_main_path(scene, device):
          "wall_s": wall, "ms_per_step": wall / TRAIN_STEPS * 1e3})
     want = TRAIN_STEPS * TRAIN_VIEWS
     for name in ("enum_keys", "blend_tiles_fwd", "blend_tiles_bwd",
-                 "cumsum_rows", "segment_sums"):
+                 "fold_rows"):
         count = launches[name]
         if count != want:
             raise AssertionError(f"{name} launched {count} times in "
@@ -1056,10 +1137,10 @@ def train_main_path(scene, device):
 def time_train_step(state, labels, cam, target, device, card):
     """One single-view make_train_step step (l2) at the 2M frame, timed
     whole and split into forward, B2, fold, projection backward and Adam;
-    the fold split into its scatter, B3 and the boundary gathers (the
-    kernel, also replayed from a CUDA graph, and its plain version op by
-    op); the gather kernel held against its plain version on this state,
-    whose dead and off-screen slots have no enumeration slot."""
+    the fold split into its scatter and ``fold_rows`` (the kernel, also
+    replayed from a CUDA graph, and its plain version); the kernel held
+    against its plain version on this state, whose dead and off-screen
+    gaussians have no enumeration slot."""
     camp = CameraParams.from_camera(cam, device)
     bg = torch.zeros(3, device=device)
     step = trainer.make_train_step((WIDTH, HEIGHT), CFG, lr=TRAIN_LR,
@@ -1089,21 +1170,15 @@ def time_train_step(state, labels, cam, target, device, card):
     drows = fr.blend_bwd()
     row["fold"], _ = cuda_ms(lambda: fr.fold(drows), reps=5, warmup=1)
     rows = enumeration_rows(drows, fr.binning.je_sorted)
-    cs = blend.cumsum_rows(rows)
-    check_segment_sums(cs, fr.binning.enum_start, fr.binning.enum_cnt,
-                       "2M training state")
+    seg = (fr.binning.enum_start, fr.binning.enum_cnt)
+    check_fold_rows(rows, *seg, "2M training state", card)
     for part, fn in (
             ("fold: scatter", lambda: enumeration_rows(
                 drows, fr.binning.je_sorted)),
-            ("fold: B3", lambda: blend.cumsum_rows(rows)),
-            ("fold: gathers", lambda: fr.segment_sums(cs)),
-            ("fold: gathers plain", lambda: fr.segment_sums_plain(cs))):
+            ("fold: fold_rows", lambda: fold_rows(rows, *seg)),
+            ("fold: fold_rows plain", lambda: _fold_rows_plain(rows, *seg))):
         row[part], _ = cuda_ms(fn, reps=5, warmup=1)
-    row["fold: B3 graph"] = graph_ms(lambda: blend.cumsum_rows(rows))
-    row["fold: gathers graph"] = graph_ms(lambda: fr.segment_sums(cs))
-    log({"measure": "fold gathers op by op", "frame": "2M training state",
-         **segment_sum_ops(cs, fr.binning.enum_start, fr.binning.enum_cnt),
-         "card": card})
+    row["fold: fold_rows graph"] = graph_ms(lambda: fold_rows(rows, *seg))
     opt = trainer.scaled_adam(TRAIN_LR)
     row["adam"], _ = cuda_ms(
         lambda: opt.update(grads, state.opt_state, state.params), reps=5,
@@ -1550,8 +1625,7 @@ def bench_phase(device, card, report: Path) -> tuple:
          "bench_vote_launches": vote_launches})
     for launched, names in (
             (bench_launches, ("enum_keys", "blend_tiles_fwd",
-                              "blend_tiles_bwd", "cumsum_rows",
-                              "segment_sums")),
+                              "blend_tiles_bwd", "fold_rows")),
             (vote_launches, ("enum_keys", "blend_tiles_vis"))):
         if any(launched[k] == 0 for k in names):
             raise AssertionError(f"B launched {launched}")
@@ -1784,8 +1858,8 @@ def densify_candidates(params, stats, extent) -> dict:
 
 def train_cli_phase(scene, device, card) -> dict:
     """Phase T: ``gsplat_tpu_torch.cli.train`` twice on the same checkpoint
-    directory (the second run resumes at step 101); B4, B1, B2, B3 and the
-    gathers launched once per step of run 1, the loss falling (the views'
+    directory (the second run resumes at step 101); B4, B1, B2 and the fold
+    launched once per step of run 1, the loss falling (the views'
     second visits against their first), the resumed run's last logged loss
     within 1e-3 relative of run 1's, both PLYs with the same alive count
     within 0.1%. Returns run 1's launch counts."""
@@ -2594,7 +2668,7 @@ def sharded_step_check(tag, mesh, ref, counted) -> dict:
     """One sharded ``make_train_step`` step over ``mesh`` on ``ref``'s
     state (:func:`single_step_reference`): its loss bit-equal to the
     single-device step's, every gradient within 1e-3 of its peak (the
-    card-vs-CPU bar), and B4, B1, B2, B3 and the gathers launched once a
+    card-vs-CPU bar), and B4, B1, B2 and the fold launched once a
     shard. Raises otherwise."""
     d = mesh.size
     sharded = mesh_lib.shard_scene(ref["params"].to_scene(ref["labels"]),
@@ -2680,7 +2754,7 @@ def mesh_phase(scene, cam, device, card) -> dict:
             raise AssertionError(f"M2 render at D={d} launched {got}")
         log({"phase": "M2 sharded render", "shards": d, **res,
              "launches": got, "card": card})
-    # B4, B1, B2, B3 and the gathers under a lattice that is not the whole
+    # B4, B1, B2 and the fold under a lattice that is not the whole
     # grid, at the 2M frame, against the single-device step
     mesh = mesh_lib.make_mesh(scaling._shape(MESH_STEP_SHARDS), [device])
     out["M2 train step"] = sharded_step_check(
@@ -2767,7 +2841,7 @@ def parity_phase(card) -> dict:
     if rc != 0 or not report["pass"]:
         raise AssertionError(f"G: the kernels miss the parity bars: {report}")
     want = {"enum_keys": 2, "blend_tiles_fwd": 2, "blend_tiles_bwd": 1,
-            "cumsum_rows": 1, "segment_sums": 1}
+            "fold_rows": 1}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"G launched {launches}, not {want}")
     return launches
@@ -2811,7 +2885,7 @@ def quality_phase(card) -> dict:
         raise AssertionError(f"Q: the gate went wrong: rc {rc}, gain {gain} "
                              f"dB, densify {densified}, PLY reloaded "
                              f"{fit['ply_reloaded']}")
-    for k in ("blend_tiles_bwd", "cumsum_rows", "segment_sums"):
+    for k in ("blend_tiles_bwd", "fold_rows"):
         if launches[k] != steps:
             raise AssertionError(f"Q launched {k} {launches[k]} times in "
                                  f"{QUALITY_ITERS} steps of {views} views")
@@ -2823,7 +2897,7 @@ def quality_phase(card) -> dict:
 _EXAMPLE_CHILD = r"""
 import json, runpy, sys
 from gsplat_tpu_torch.render import blend, projection, tiles
-from gsplat_tpu_torch.render.api import segment_sums
+from gsplat_tpu_torch.render.api import fold_rows, segment_sums
 
 path = sys.argv[1]
 sys.argv = [path] + sys.argv[2:]
@@ -2833,8 +2907,8 @@ try:
 except SystemExit as stop:
     code = stop.code
 wrappers = (tiles.enum_keys, blend.blend_tiles_fwd, blend.blend_tiles_bwd,
-            blend.cumsum_rows, segment_sums, blend.blend_tiles_vis,
-            projection.project)
+            blend.cumsum_rows, segment_sums, fold_rows,
+            blend.blend_tiles_vis, projection.project)
 print("LAUNCHES " + json.dumps({w.__name__: w.launches for w in wrappers}))
 sys.exit(code)
 """
@@ -2927,7 +3001,7 @@ def examples_phase(device, card) -> dict:
     if rows["02_label_pipeline"]["launches"]["blend_tiles_vis"] == 0:
         raise AssertionError("X: example 02 never launched B5")
     for k in ("enum_keys", "blend_tiles_fwd", "blend_tiles_bwd",
-              "cumsum_rows", "segment_sums"):
+              "fold_rows"):
         if launches[k] == 0:
             raise AssertionError(f"X: the examples never launched {k}")
     log({"phase": "X done", "launches": launches,
@@ -3044,6 +3118,7 @@ def main(argv=None) -> int:
     check_b1_equals_b5(bench, "bench")
     err_fold = check_segment_sums(bench.fold_cs(), bench.binning.enum_start,
                                   bench.binning.enum_cnt, "bench")
+    fold_rows_rows = fold_phase(bench, device, card)
     proj_rows = {"bench": check_project(bench.scene, bench.cam, "bench",
                                         card)}
     check_small_labeling(device)
@@ -3336,6 +3411,13 @@ def main(argv=None) -> int:
          "graph_ms": row["segment_sums graph"],
          "plain_ms": row["segment_sums plain"],
          "bound_ms": fb[0], "bound_by": fb[1], "library_ms": None},
+        {"name": "fold_rows", "route": "cuda",
+         "source": "gsplat_tpu_torch/csrc/fold_rows.cu",
+         "replaces": "gsplat_tpu/render/api.py:148-161 (XLA glue: the fold "
+                     "as a difference of prefix sums)",
+         "launches": train_launches["fold_rows"], "max_abs_err": 0.0,
+         **fold_rows_rows["m360 training view"], "by_frame": fold_rows_rows,
+         "library_ms": None},
         {"name": "project", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/project.cu",
          "replaces": "gsplat_tpu/render/projection.py:project and "
@@ -3354,12 +3436,14 @@ def main(argv=None) -> int:
     # "launches" counts each kernel on the path that brought it: the 8-view
     # render for B4, B1 and the projection (XLA glue in the JAX package, no
     # TPU kernel; its row times the 2M view, by_frame every checked frame),
-    # the 10 training steps for B2, B3 and the fold's boundary gathers (XLA
-    # glue too), the visible-mode label run of 311 views for B5, the
-    # roofline report for P1 and the scan probe for P2; every path's counts
-    # are in launches_by_path. No single PyTorch call computes B4, B1, B2,
-    # B5, the projection or the gathers (B5's segment max onto gaussians is
-    # a scatter_reduce outside the kernel), hence no library time; B3's is
+    # the 10 training steps for B2 and the fold (``fold_rows``, XLA glue
+    # too; its row times the m360 training view, by_frame both frames; B3
+    # and the boundary gathers left the training path with it), the
+    # visible-mode label run of 311 views for B5, the roofline report for
+    # P1 and the scan probe for P2; every path's counts are in
+    # launches_by_path. No single PyTorch call computes B4, B1, B2, B5, the
+    # projection, the gathers or the fold (B5's segment max onto gaussians
+    # is a scatter_reduce outside the kernel), hence no library time; B3's is
     # the faster of
     # torch.cumsum along dim 0 of the [B, 16] rows (PyTorch's outer-dimension
     # scan) and of the column-major copy along dim 1, the copy included.

@@ -3,9 +3,14 @@
 Counterpart of ``gsplat_tpu.models.trainer`` on one device, with the same
 names and call signatures, so a test drives both the same way. Gradients
 come from torch autograd through the renderer, whose blend is one
-``torch.autograd.Function`` (``render/api.py::BlendSceneTiles``): kernels B1
-forward, B2 and B3 backward on the card, their plain versions on the CPU.
-A step runs on the device its state lies on.
+``torch.autograd.Function`` (``render/api.py::BlendSceneTiles``): kernel B1
+forward, B2 and the fold (``csrc/fold_rows.cu``) backward on the card, their
+plain versions on the CPU. A step runs on the device its state lies on.
+Under a profiler a step's stages are spans (``utils/profiling.py::span``):
+the render's own, then ``gsplat.loss`` (the photometric loss),
+``gsplat.backward`` (``torch.autograd.grad`` and the gradients' sum, on the
+calling thread; B2 and the fold open ``gsplat.blend_bwd`` and
+``gsplat.fold`` on autograd's thread) and ``gsplat.adam``.
 
 The optimizer is a small hand-written Adam over the five parameter tensors,
 step for step the JAX package's ``optax.chain(scale_by_adam(), per-field
@@ -38,6 +43,7 @@ from gsplat_tpu_torch.parallel.render_sharded import render_sharded
 from gsplat_tpu_torch.render.api import _render_impl
 from gsplat_tpu_torch.render.projection import CameraParams
 from gsplat_tpu_torch.scene import DeviceLike, GaussianScene, resolve_device
+from gsplat_tpu_torch.utils.profiling import span
 
 # Standard 3DGS-style per-parameter learning-rate scaling.
 LR_SCALES = dict(means=1.0, log_scales=0.05, quats=0.01, opacities=0.5,
@@ -131,7 +137,9 @@ class ScaledAdam(NamedTuple):
             return (SceneParams(*news), SceneParams(*mus),
                     SceneParams(*nus))
 
-        news, mus, nus = per_shard(rows, params, grads, state.mu, state.nu)
+        with span("gsplat.adam"):
+            news, mus, nus = per_shard(rows, params, grads, state.mu,
+                                       state.nu)
         return news, AdamState(count_inc, mus, nus)
 
 
@@ -242,10 +250,12 @@ def _grads(params: SceneParams, labels, views, photometric, *, width,
                 ShardedScene(scenes, mesh), cam, mesh, width=width,
                 height=height, cfg=cfg, background=bg, with_dropped=True)
         h = min(img.shape[0], target.shape[0])
-        loss = photometric(img[:h], target[:h])
-        gs = torch.autograd.grad(loss / nv, flat)
-        for acc, g in zip(grads, gs):
-            acc += g
+        with span("gsplat.loss"):
+            loss = photometric(img[:h], target[:h])
+        with span("gsplat.backward"):
+            gs = torch.autograd.grad(loss / nv, flat)
+            for acc, g in zip(grads, gs):
+                acc += g
         total = total + loss.detach()
         dropped = torch.maximum(dropped, nd)
     k = len(SceneParams._fields)

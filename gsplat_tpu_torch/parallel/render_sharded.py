@@ -18,8 +18,8 @@ program in the JAX package):
    Rows arrive ordered by (source shard, position): shards are contiguous
    slices, so that is the gaussians' global order, and each tile's stable
    sort gives it the single-device sequence;
-3. each local shard bins and blends its lattice (kernels B4, B1; B2, B3 and
-   the fold's gathers backward) into its [ty_l * ts, tx_l * ts] block, the
+3. each local shard bins and blends its lattice (kernels B4, B1; B2 and the
+   fold backward) into its [ty_l * ts, tx_l * ts] block, the
    tiles' pixels at their global positions;
 4. every process gathers the D blocks and interleaves them into the image
    (:func:`interleave_tiles`), so the loss (SSIM's window crosses tiles)

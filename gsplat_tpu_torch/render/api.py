@@ -7,8 +7,9 @@ the caller names another device; the tensors' device decides whether the
 kernels or their plain versions run. The blend is one
 ``torch.autograd.Function`` on both devices (:class:`BlendSceneTiles`,
 the counterpart of ``blend_scene_windows`` and its custom VJP): forward
-kernel B1, backward kernel B2 and the gradient fold over kernel B3 and the
-boundary-gather kernel of :func:`segment_sums`.
+kernel B1, backward kernel B2 and the gradient fold of :func:`fold_rows`
+(``csrc/fold_rows.cu``). Kernel B3 and the boundary gathers of
+:func:`segment_sums`, the JAX package's fold, remain for the probes.
 Projection and SH (``render/projection.py::project``) are one launch of
 ``csrc/project.cu`` where no gradient is recorded, else plain torch whose
 VJP autograd derives.
@@ -141,20 +142,111 @@ def segment_sums(cs: torch.Tensor, enum_start: torch.Tensor,
 segment_sums.launches = 0
 
 
+# rows a chunk of csrc/fold_rows.cu (kChunk); it sets the order of the sum
+FOLD_CHUNK = 32
+
+
+def _fold_rows_plain(rows: torch.Tensor, enum_start: torch.Tensor,
+                     enum_cnt: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fold_rows`, in its order: each
+    segment cut into chunks of ``FOLD_CHUNK`` rows from its first row, each
+    chunk summed left to right from its first row, then the chunks' sums
+    left to right from the first. A masked step keeps its sum as it was (a
+    ``where``, not an added zero, which would turn -0 into +0)."""
+    n = enum_start.shape[0]
+    out = rows.new_zeros(n, rows.shape[1])
+    cnt = enum_cnt.long()
+    nch = (cnt + FOLD_CHUNK - 1) // FOLD_CHUNK
+    live = torch.nonzero(nch)[:, 0]
+    if live.numel() == 0:
+        return out
+    nch = nch[live]
+    g = torch.repeat_interleave(live, nch)          # chunk -> gaussian
+    first = torch.cumsum(nch, 0) - nch              # first chunk of each
+    j = torch.arange(g.numel(), device=rows.device) - torch.repeat_interleave(
+        first, nch)
+    r0 = enum_start.long()[g] + j * FOLD_CHUNK
+    length = torch.clamp(cnt[g] - j * FOLD_CHUNK, max=FOLD_CHUNK)
+    sums = rows[r0]
+    for t in range(1, int(length.max())):
+        more = t < length
+        sums = torch.where(more[:, None], sums + rows[torch.where(
+            more, r0 + t, r0)], sums)
+    acc = sums[first]
+    for k in range(1, int(nch.max())):
+        more = k < nch
+        acc = torch.where(more[:, None], acc + sums[torch.where(
+            more, first + k, first)], acc)
+    out[live] = acc
+    return out
+
+
+def fold_rows(rows: torch.Tensor, enum_start: torch.Tensor,
+              enum_cnt: torch.Tensor) -> torch.Tensor:
+    """Each gaussian's sum of its own rows [N, 16] f32, from the rows [B,
+    16] f32 in enumeration order and [N] i32 ``enum_start`` and
+    ``enum_cnt`` (gaussian g owns rows [start, start + cnt)); 0 where cnt is
+    0, and exactly 0 where every row is 0. The order of the sum is
+    :func:`_fold_rows_plain`'s.
+
+    Replaces XLA glue, not a Pallas kernel: the fold of
+    ``gsplat_tpu/render/api.py:148-161``, a difference of two rows of one
+    prefix sum (here kernel B3 and :func:`segment_sums`), which carries an
+    ulp of the running sum (0.06-0.5 at a real frame's size) into every
+    gaussian's row, those with all-zero rows too. On the card it launches
+    ``csrc/fold_rows.cu`` (a block per 64 gaussians; their chunks shared by
+    the block's quads, each gaussian's chunk sums added in order by its own
+    quad; bound by bytes: every row read once, 72 bytes a gaussian), equal
+    to the plain version bit for bit and the same from run to run; CPU
+    tensors take the plain version."""
+    if (rows.dtype != torch.float32 or rows.dim() != 2
+            or rows.shape[1] != blend.PARAM_ROWS):
+        raise ValueError("fold_rows takes f32 [B, 16] rows")
+    n = enum_start.shape[0]
+    for t in (enum_start, enum_cnt):
+        if t.dtype != torch.int32 or t.shape != (n,):
+            raise ValueError("fold_rows takes [N] i32 starts and counts")
+        if t.device != rows.device:
+            raise ValueError("fold_rows takes tensors on one device")
+    if not (rows.is_contiguous() and enum_start.is_contiguous()
+            and enum_cnt.is_contiguous()):
+        raise ValueError("fold_rows takes contiguous tensors")
+    if rows.device.type == "cpu":
+        return _fold_rows_plain(rows, enum_start, enum_cnt)
+    if rows.device.type != "cuda":
+        raise ValueError(f"fold_rows: no kernel for {rows.device}")
+    if rows.shape[0] >= 2 ** 31 or rows.data_ptr() % 16:
+        raise ValueError("fold_rows takes fewer than 2^31 rows, 16-byte "
+                         "aligned")
+    out = torch.empty(n, blend.PARAM_ROWS, device=rows.device)
+    if n == 0:
+        return out
+    fn = _kernels.function("fold_rows")
+    err = fn(rows.data_ptr(), rows.shape[0], enum_start.data_ptr(),
+             enum_cnt.data_ptr(), n, out.data_ptr(),
+             _kernels.stream(rows.device))
+    fold_rows.launches += 1
+    _kernels.check("fold_rows", err)
+    return out
+
+
+fold_rows.launches = 0
+
+
 def fold_instance_rows(drows: torch.Tensor, je_sorted: torch.Tensor,
                        enum_start: torch.Tensor, enum_cnt: torch.Tensor
                        ) -> torch.Tensor:
     """Per-instance gradient rows [B, 16] in sorted-stream order -> the
-    per-gaussian gradient [N, 16] in original order, without a scatter-add
-    (``gsplat_tpu/render/api.py:148-161``): the rows move to enumeration
-    order, where each gaussian's instances are consecutive; one prefix sum
-    (kernel B3) and two boundary row gathers (:func:`segment_sums`) give
-    each gaussian's segment sum. The move is plain torch, as it is plain XLA
-    in the JAX package."""
-    if drows.shape[0] == 0:
-        return drows.new_zeros(enum_start.shape[0], drows.shape[1])
-    cs = blend.cumsum_rows(enumeration_rows(drows, je_sorted))
-    return segment_sums(cs, enum_start, enum_cnt)
+    per-gaussian gradient [N, 16] in original order, without a scatter-add:
+    the rows move to enumeration order, where each gaussian's instances are
+    consecutive, and :func:`fold_rows` sums each gaussian's own. The move is
+    plain torch, as it is plain XLA in the JAX package
+    (``gsplat_tpu/render/api.py:148-161``)."""
+    with span("gsplat.fold"):
+        if drows.shape[0] == 0:
+            return drows.new_zeros(enum_start.shape[0], drows.shape[1])
+        return fold_rows(enumeration_rows(drows, je_sorted), enum_start,
+                         enum_cnt)
 
 
 class BlendSceneTiles(torch.autograd.Function):
@@ -163,7 +255,9 @@ class BlendSceneTiles(torch.autograd.Function):
     Forward: kernel B1 (``blend.blend_tiles_fwd``), returning (rgb,
     transmittance) and, with labels, (best_weight, label), which are not
     differentiable, as the JAX VJP ignores the label rows. Backward: kernel
-    B2 (``blend.blend_tiles_bwd``) then :func:`fold_instance_rows`. Grads
+    B2 (``blend.blend_tiles_bwd``, span ``gsplat.blend_bwd``) then
+    :func:`fold_instance_rows` (span ``gsplat.fold``); on the card autograd
+    runs this on its device thread, where the spans open. Grads
     are materialised (the default), so an output the loss does not use, such
     as T under an RGB-only loss, reaches B2 as zeros."""
 
@@ -189,10 +283,11 @@ class BlendSceneTiles(torch.autograd.Function):
          trans) = ctx.saved_tensors
         dptab = None
         if ctx.needs_input_grad[0]:
-            drows = blend.blend_tiles_bwd(
-                ptab, inst_gauss, tile_bounds, rgb.contiguous(),
-                trans.contiguous(), g_rgb.contiguous(), g_trans.contiguous(),
-                **ctx.settings._asdict())
+            with span("gsplat.blend_bwd"):
+                drows = blend.blend_tiles_bwd(
+                    ptab, inst_gauss, tile_bounds, rgb.contiguous(),
+                    trans.contiguous(), g_rgb.contiguous(),
+                    g_trans.contiguous(), **ctx.settings._asdict())
             dptab = fold_instance_rows(drows, je_sorted, enum_start,
                                        enum_cnt)
         return dptab, None, None, None, None, None, None, None

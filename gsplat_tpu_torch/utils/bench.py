@@ -6,7 +6,7 @@ num_labels=16)``, 100k gaussians by default) from ``look_at_camera((0, 0,
 -3), (0, 0, 0))`` at 800x608, the loss ``0.5 * sum(image^2)`` of
 ``render/api.py::_render_impl`` without labels, differentiated with respect
 to the five float tensors of ``models/trainer.py::SceneParams`` (kernels
-B4, B1, B2, B3 and the fold's gathers each iteration; ``--forward-only``:
+B4, B1, B2 and the fold each iteration; ``--forward-only``:
 the render alone, B4 and B1)::
 
     python -m gsplat_tpu_torch.utils.bench [--forward-only] [--device cpu]

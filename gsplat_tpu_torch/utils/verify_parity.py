@@ -17,7 +17,7 @@ card's machine has no JAX):
    over the gaussians whose isotropic cutoff radius (plus a pixel) reaches
    its rows: the others have alpha 0 there, so they change no product;
 2. :func:`kernel_stage`, on ``--device``: the tiled path through kernels
-   B4, B1, B2, B3 and the fold's boundary gathers, and a forward render
+   B4, B1, B2 and the fold (``csrc/fold_rows.cu``), and a forward render
    with labels for the label map.
 
 It writes ``--out`` (default ``build/parity_torch.json``) with
@@ -121,7 +121,7 @@ def reference_stage(scene, cam, target) -> Dict[str, object]:
 
 def kernel_stage(scene, cam, target, device) -> Dict[str, object]:
     """The tiled path on ``device``: the image and gradients of the loss
-    through B4, B1, B2, B3 and the gathers, then the label map of a forward
+    through B4, B1, B2 and the fold, then the label map of a forward
     render with labels."""
     rc = DEFAULT.raster
     params, sc = _leaves(scene, device)

@@ -759,8 +759,8 @@ def test_render_gradients_on_card_match_cpu(card):
     target = torch.from_numpy(np.random.default_rng(2).uniform(
         size=(96, 128, 3)).astype(np.float32))
     grads = {}
-    before = (blend.blend_tiles_bwd.launches, blend.cumsum_rows.launches,
-              api.segment_sums.launches)
+    before = (blend.blend_tiles_bwd.launches, api.fold_rows.launches,
+              blend.cumsum_rows.launches, api.segment_sums.launches)
     for dev in (card, torch.device("cpu")):
         s = scene.to(dev)
         params = trainer.SceneParams.from_scene(s)
@@ -769,8 +769,11 @@ def test_render_gradients_on_card_match_cpu(card):
         out = api.render(params.to_scene(s.labels), cam, device=dev)
         loss = trainer.l2_loss(out["image"], target.to(dev))
         grads[dev.type] = [g.cpu() for g in torch.autograd.grad(loss, params)]
-    assert (blend.blend_tiles_bwd.launches, blend.cumsum_rows.launches,
-            api.segment_sums.launches) == tuple(b + 1 for b in before)
+    # the card's backward: B2 and the fold once each; B3 and the boundary
+    # gathers are no longer on the path
+    assert (blend.blend_tiles_bwd.launches, api.fold_rows.launches,
+            blend.cumsum_rows.launches, api.segment_sums.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
     # projection runs through the card's and the host's exp/log/sqrt, which
     # may move one alpha across the 1/255 cut: 1e-3 of each tensor's peak
     for f, g_card, g_cpu in zip(trainer.SceneParams._fields, grads["cuda"],
