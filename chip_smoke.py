@@ -63,7 +63,12 @@ B. the twins of the repository's two measurement programs at their
    ``_project_plain`` bit for bit in every field, one launch, timed beside
    the plain version and its bound by bytes (here, on the 2M view of
    phase 3, and on scenes of SH degree 3 at the benchmark's sizes: 1.7M
-   gaussians at 980x545, 3M at 1237x822); then B1, B5 and B2
+   gaussians at 980x545, 3M at 1237x822); its backward kernel
+   (``render.projection.project_bwd``, ``csrc/project_bwd.cu``) equal to
+   ``_project_vjp_plain`` bit for bit in all five gradients and from call
+   to call, one launch, timed beside the plain VJP, the autograd backward
+   through ``_project_plain`` it replaced and its bound by bytes (on the
+   bench frame and the two SH-3 scenes); then B1, B5 and B2
    against their plain versions (the same bars) on the thin-splat frame
    (``synthetic.thin_splats_projection``: 3,000 thin, rotated, high-opacity
    splats on the 16-px grid lines, 200x136), the skip test's hardest input;
@@ -252,9 +257,10 @@ from gsplat_tpu_torch.render.api import (_fold_rows_plain, _render_impl,
                                          enumeration_rows,
                                          fold_instance_rows, fold_rows,
                                          pack_table, render, segment_sums)
-from gsplat_tpu_torch.render.projection import (CameraParams, Projected,
-                                                _project_plain, project,
-                                                tile_grid)
+from gsplat_tpu_torch.render.projection import (GRAD_FIELDS, CameraParams,
+                                                Projected, _project_plain,
+                                                _project_vjp_plain, project,
+                                                project_bwd, tile_grid)
 from gsplat_tpu_torch.scene import color_to_dc, dc_color, scene_from_numpy
 from gsplat_tpu_torch.utils import (checkpoint, roofline, scan_probe,
                                     train_quality, verify_parity)
@@ -326,7 +332,7 @@ TRAIN_CLI_SIZE = (1600, 1216)
 TRAIN_CLI_ITERS = 120
 TRAIN_CLI_RESUME = 101
 TRAIN_CLI_KERNELS = ("enum_keys", "blend_tiles_fwd", "blend_tiles_bwd",
-                     "fold_rows")
+                     "fold_rows", "project", "project_bwd")
 
 # Phase K, clustering: k-means over the 2M scene at the reference's k = 10;
 # region growing over its first 100k gaussians at the reference's
@@ -1004,6 +1010,77 @@ def check_project(scene, cam, tag: str, card: str) -> dict:
     return row
 
 
+def project_bwd_bytes(scene, live: int) -> int:
+    """Bytes the projection's backward must move: every gaussian's incoming
+    gradients (one 64-byte row of the fold's [N, 16] output) read and its
+    gradient rows written once, the ``live`` gaussians' (a gradient not all
+    0) input rows read once."""
+    row = sum(getattr(scene, f).element_size() * getattr(scene, f)[0].numel()
+              for f in ("means", "log_scales", "quats", "opacities", "sh"))
+    return scene.num_gaussians * (64 + row) + live * row
+
+
+def check_project_bwd(scene, cam, tag: str, card: str) -> dict:
+    """The projection's backward kernel against ``_project_vjp_plain`` on
+    one view, its incoming gradients as a training step hands them over
+    (strided columns of an [N, 16] table, seeded, zero where the gaussian
+    is not ``valid``, depth's None): the five gradients equal bit for bit,
+    one launch; then its time between CUDA events and replayed from a CUDA
+    graph, the plain autograd backward's through ``_project_plain`` (the
+    train step's path before the kernel), the plain VJP's, and the bound by
+    bytes at the published HBM rate."""
+    camp = CameraParams.from_camera(cam, scene.device)
+    args = (scene, camp, cam.width, cam.height, RC)
+    kw = dict(z_near=CFG.camera.z_near, z_far=CFG.camera.z_far)
+    with torch.no_grad():
+        valid = project(*args, **kw).valid
+    gen = torch.Generator(device=scene.device).manual_seed(17)
+    table = torch.randn(scene.num_gaussians, 16, generator=gen,
+                        device=scene.device) * valid[:, None]
+    cols = dict(u=0, v=1, ca=2, cb=3, cc=4, opacity=5, red=6, green=7,
+                blue=8)
+    grads = [table[:, cols[f]] if f in cols else None for f in GRAD_FIELDS]
+    fields = trainer.SceneParams.from_scene(scene)
+    call = lambda: project_bwd(fields, camp, grads, RC, **kw)
+    before = project_bwd.launches
+    got = call()
+    launched = project_bwd.launches - before
+    want = _project_vjp_plain(fields, camp, RC, grads, sh_degree=None, **kw)
+    differ = [f for f, a, b in zip(trainer.SceneParams._fields, got, want)
+              if not torch.equal(a.view(torch.int32), b.view(torch.int32))]
+    again = call()
+    repeat = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                 for a, b in zip(got, again))
+    del got, want, again
+    ms, runs = cuda_ms(call)
+    plain_ms, _ = cuda_ms(lambda: _project_vjp_plain(
+        fields, camp, RC, grads, sh_degree=None, **kw), reps=5, warmup=1)
+    leaves = trainer.SceneParams(*(t.detach().requires_grad_(True)
+                                   for t in fields))
+    out = _project_plain(leaves, *args[1:], sh_degree=None, **kw)
+    loss = sum((getattr(out, f) * g).sum()
+               for f, g in zip(GRAD_FIELDS, grads) if g is not None)
+    autograd_ms, _ = cuda_ms(lambda: torch.autograd.grad(
+        loss, leaves, retain_graph=True), reps=5, warmup=1)
+    del out, loss, leaves
+    live = int((table[:, :9] != 0).any(1).sum())
+    nbytes = project_bwd_bytes(scene, live)
+    row = {"gaussians": scene.num_gaussians, "live": live,
+           "sh_degree": math.isqrt(scene.sh.shape[1]) - 1,
+           "size": [cam.width, cam.height], "ms": ms, "runs_ms": runs,
+           "graph_ms": graph_ms(call), "plain_ms": plain_ms,
+           "autograd_ms": autograd_ms, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log({"check": "project_bwd vs plain VJP", "frame": tag,
+         "fields_differ": differ, "repeat_equal": repeat,
+         "launches": launched, **row, "card": card})
+    if differ or not repeat or launched != 1:
+        raise AssertionError(f"project_bwd differs from its plain VJP in "
+                             f"{differ} on {tag} (repeat equal {repeat}, "
+                             f"{launched} launches)")
+    return row
+
+
 def check_gradients(device) -> None:
     """Scene gradients through render on the card against the CPU's:
     random 2000-gaussian scene, 128x96, l2 against a fixed target; each of
@@ -1035,7 +1112,7 @@ def check_gradients(device) -> None:
 
 WRAPPERS = (tiles.enum_keys, blend.blend_tiles_fwd, blend.blend_tiles_bwd,
             blend.cumsum_rows, segment_sums, fold_rows,
-            blend.blend_tiles_vis, project,
+            blend.blend_tiles_vis, project, project_bwd,
             roofline.fma_chains,
             roofline.expf_chains, scan_probe.flat_scan_kernel,
             scan_probe.grouped_scan_kernel)
@@ -1122,7 +1199,7 @@ def train_main_path(scene, device):
          "wall_s": wall, "ms_per_step": wall / TRAIN_STEPS * 1e3})
     want = TRAIN_STEPS * TRAIN_VIEWS
     for name in ("enum_keys", "blend_tiles_fwd", "blend_tiles_bwd",
-                 "fold_rows"):
+                 "fold_rows", "project", "project_bwd"):
         count = launches[name]
         if count != want:
             raise AssertionError(f"{name} launched {count} times in "
@@ -1136,7 +1213,8 @@ def train_main_path(scene, device):
 
 def time_train_step(state, labels, cam, target, device, card):
     """One single-view make_train_step step (l2) at the 2M frame, timed
-    whole and split into forward, B2, fold, projection backward and Adam;
+    whole and split into forward, B2, fold, the rest of the backward (the
+    projection's kernel, the loss's backward, the sums) and Adam;
     the fold split into its scatter and ``fold_rows`` (the kernel, also
     replayed from a CUDA graph, and its plain version); the kernel held
     against its plain version on this state, whose dead and off-screen
@@ -1183,7 +1261,8 @@ def time_train_step(state, labels, cam, target, device, card):
     row["adam"], _ = cuda_ms(
         lambda: opt.update(grads, state.opt_state, state.params), reps=5,
         warmup=1)
-    row["projection backward"] = row["backward"] - row["B2"] - row["fold"]
+    row["backward but B2 and fold"] = (row["backward"] - row["B2"]
+                                      - row["fold"])
     log({"measure": "train step", "frame": "2M view 0 (training state)",
          "capacity": int(state.params.means.shape[0]), "ms": row,
          "step_runs_ms": runs, "max_memory_allocated_bytes": peak,
@@ -2885,11 +2964,12 @@ def quality_phase(card) -> dict:
         raise AssertionError(f"Q: the gate went wrong: rc {rc}, gain {gain} "
                              f"dB, densify {densified}, PLY reloaded "
                              f"{fit['ply_reloaded']}")
-    for k in ("blend_tiles_bwd", "fold_rows"):
+    for k in ("blend_tiles_bwd", "fold_rows", "project_bwd"):
         if launches[k] != steps:
             raise AssertionError(f"Q launched {k} {launches[k]} times in "
                                  f"{QUALITY_ITERS} steps of {views} views")
-    if launches["enum_keys"] < steps or launches["blend_tiles_fwd"] < steps:
+    if any(launches[k] < steps for k in ("enum_keys", "blend_tiles_fwd",
+                                         "project")):
         raise AssertionError(f"Q launched {launches}")
     return launches
 
@@ -2908,7 +2988,8 @@ except SystemExit as stop:
     code = stop.code
 wrappers = (tiles.enum_keys, blend.blend_tiles_fwd, blend.blend_tiles_bwd,
             blend.cumsum_rows, segment_sums, fold_rows,
-            blend.blend_tiles_vis, projection.project)
+            blend.blend_tiles_vis, projection.project,
+            projection.project_bwd)
 print("LAUNCHES " + json.dumps({w.__name__: w.launches for w in wrappers}))
 sys.exit(code)
 """
@@ -3001,7 +3082,7 @@ def examples_phase(device, card) -> dict:
     if rows["02_label_pipeline"]["launches"]["blend_tiles_vis"] == 0:
         raise AssertionError("X: example 02 never launched B5")
     for k in ("enum_keys", "blend_tiles_fwd", "blend_tiles_bwd",
-              "fold_rows"):
+              "fold_rows", "project", "project_bwd"):
         if launches[k] == 0:
             raise AssertionError(f"X: the examples never launched {k}")
     log({"phase": "X done", "launches": launches,
@@ -3121,6 +3202,8 @@ def main(argv=None) -> int:
     fold_rows_rows = fold_phase(bench, device, card)
     proj_rows = {"bench": check_project(bench.scene, bench.cam, "bench",
                                         card)}
+    proj_bwd_rows = {"bench": check_project_bwd(bench.scene, bench.cam,
+                                                "bench", card)}
     check_small_labeling(device)
     thin = Frame.from_projection(*thin_splats_projection(
         3000, width=200, height=136, seed=7, device=device), 200, 136)
@@ -3205,9 +3288,12 @@ def main(argv=None) -> int:
         sized = random_scene(n, seed=n, extent=1.5,
                              scale_range=(0.002, 0.008), sh_degree=3,
                              device=device)
+        sized_cam = look_at_camera((2.5, 0.3, 0.0), (0, 0, 0), width=w,
+                                   height=h)
         proj_rows[f"{n} SH 3"] = check_project(
-            sized, look_at_camera((2.5, 0.3, 0.0), (0, 0, 0), width=w,
-                                  height=h), f"{n} SH 3, {w}x{h}", card)
+            sized, sized_cam, f"{n} SH 3, {w}x{h}", card)
+        proj_bwd_rows[f"{n} SH 3"] = check_project_bwd(
+            sized, sized_cam, f"{n} SH 3, {w}x{h}", card)
         del sized
 
     # L. labeling path: the label CLI over 311 views of the 2M scene
@@ -3424,6 +3510,13 @@ def main(argv=None) -> int:
                      "gsplat_tpu/render/sh.py:eval_sh_soa (XLA glue)",
          "launches": launches["project"], "max_abs_err": 0.0,
          **proj_rows["2M view 0"], "by_frame": proj_rows,
+         "library_ms": None},
+        {"name": "project_bwd", "route": "cuda",
+         "source": "gsplat_tpu_torch/csrc/project_bwd.cu",
+         "replaces": "the VJP of gsplat_tpu/render/projection.py:project "
+                     "and sh.py:eval_sh_soa (XLA glue, jax.grad)",
+         "launches": train_launches["project_bwd"], "max_abs_err": 0.0,
+         **proj_bwd_rows["3000000 SH 3"], "by_frame": proj_bwd_rows,
          "library_ms": None},
         {"name": "blend_tiles_vis", "route": "cuda",
          "source": "gsplat_tpu_torch/csrc/blend_vis.cu",

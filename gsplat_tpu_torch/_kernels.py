@@ -81,6 +81,8 @@ SIGNATURES = {
     "project": ("gsplat_project",
                 [_P] * 5 + [_I] * 3 + [_P] * 4 + [_I] * 2 + [_F] * 6
                 + [_P] * 3),
+    "project_bwd": ("gsplat_project_bwd",
+                    [_P] * 5 + [_I] * 3 + [_P] * 4 + [_F] * 3 + [_P] * 8),
 }
 
 _functions: Dict[str, ctypes._CFuncPtr] = {}

@@ -8,7 +8,9 @@
 // gathers (csrc/fold_segments.cu). The plain version dispatches each
 // elementwise operation as a kernel of its own, ~510 launches a view at
 // SH degree 3. This kernel keeps the plain version's operations and their
-// order, one f32 rounding each, so the two agree bit for bit: -fmad=false
+// order, one f32 rounding each (the per-gaussian arithmetic lives in
+// project.cuh, shared with the backward kernel project_bwd.cu, which
+// recomputes the same values), so the two agree bit for bit: -fmad=false
 // (no a*b+c contraction), IEEE division and sqrtf, full-precision expf and
 // logf, and the rounding of PyTorch's CUDA operators where it differs from
 // the written formula (PyTorch 2.11): sigmoid is 1 / (1 + exp(-x)); x / s
@@ -31,81 +33,15 @@
 // take 4-byte loads, still coalesced. Each output field is a row of one
 // [14, N] array, stored coalesced along N.
 
-#include <cstdint>
-
 #include <cuda_runtime.h>
+
+#include "project.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;         // gaussians and threads a block
-constexpr int kPitch = kThreads + 1;  // odd: column reads hit 32 banks
+using namespace proj;
+
 constexpr int kFields = 14;           // f32 output rows
-
-// Python's SH constants (render/sh.py) as PyTorch passes them: the f32 of
-// the double (a float literal would round the decimal once, not twice).
-#define F32(x) static_cast<float>(x)
-constexpr float kC0 = F32(0.28209479177387814);
-constexpr float kC1 = F32(0.4886025119029199);
-constexpr float kC2_0 = F32(1.0925484305920792);
-constexpr float kC2_1 = F32(-1.0925484305920792);
-constexpr float kC2_2 = F32(0.31539156525252005);
-constexpr float kC2_3 = F32(-1.0925484305920792);
-constexpr float kC2_4 = F32(0.5462742152960396);
-constexpr float kC3_0 = F32(-0.5900435899266435);
-constexpr float kC3_1 = F32(2.890611442640554);
-constexpr float kC3_2 = F32(-0.4570457994644658);
-constexpr float kC3_3 = F32(0.3731763325901154);
-constexpr float kC3_4 = F32(-0.4570457994644658);
-constexpr float kC3_5 = F32(1.445305721320277);
-constexpr float kC3_6 = F32(-0.5900435899266435);
-constexpr float kNormFloor = F32(1e-12);
-#undef F32
-
-// torch.clamp_min / clamp_max with a scalar on the card: NaN passes.
-__device__ __forceinline__ float clamp_min(float v, float lo) {
-  return isnan(v) ? v : fmaxf(v, lo);
-}
-__device__ __forceinline__ float clamp_max(float v, float hi) {
-  return isnan(v) ? v : fminf(v, hi);
-}
-
-// Rows [first, first + count) of an [N, R] f32 array into dst, transposed:
-// element j of row first + g at dst[j * kPitch + g].
-template <int R>
-__device__ __forceinline__ void stage(const float* __restrict__ src,
-                                      long long first, int count,
-                                      float* __restrict__ dst) {
-  const float* base = src + first * R;
-  const int t = threadIdx.x;
-  if (count == kThreads &&
-      (reinterpret_cast<uintptr_t>(base) & 15) == 0) {
-    // kThreads * R / 4 float4s, loaded before any is stored
-    constexpr int kVec = kThreads * R / 4;
-    constexpr int kPer = (kVec + kThreads - 1) / kThreads;
-    const float4* b4 = reinterpret_cast<const float4*>(base);
-    float4 v[kPer];
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = t + k * kThreads;
-      if (i < kVec) v[k] = __ldg(b4 + i);
-    }
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = t + k * kThreads;
-      if (i < kVec) {
-        const float e[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int f = 4 * i + c;
-          dst[(f % R) * kPitch + f / R] = e[c];
-        }
-      }
-    }
-  } else {
-    for (int f = t; f < count * R; f += kThreads)
-      dst[(f % R) * kPitch + f / R] = __ldg(base + f);
-  }
-}
 
 template <int K>
 __global__ void __launch_bounds__(kThreads) project_kernel(
@@ -136,81 +72,22 @@ __global__ void __launch_bounds__(kThreads) project_kernel(
   if (g >= count) return;
   const long long i = first + g;
 
-  // camera: R, its position and the translation -(R @ pos), written out
-  float r[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) r[k] = __ldg(rot + k);
-  const float p0 = __ldg(pos), p1 = __ldg(pos + 1), p2 = __ldg(pos + 2);
-  const float fx = __ldg(fx_p), fy = __ldg(fy_p);
-  const float tr0 = -((r[0] * p0 + r[1] * p1) + r[2] * p2);
-  const float tr1 = -((r[3] * p0 + r[4] * p1) + r[5] * p2);
-  const float tr2 = -((r[6] * p0 + r[7] * p1) + r[8] * p2);
-
+  const Camera cam = load_camera(rot, pos, fx_p, fy_p);
   const float mx = s_means[g], my = s_means[kPitch + g],
               mz = s_means[2 * kPitch + g];
-  const float pcx = ((r[0] * mx + r[1] * my) + r[2] * mz) + tr0;
-  const float pcy = ((r[3] * mx + r[4] * my) + r[5] * mz) + tr1;
-  const float z = ((r[6] * mx + r[7] * my) + r[8] * mz) + tr2;
-  bool valid = (z > z_near) && (z < z_far);
-  const float zs = valid ? z : 1.0f;
-  const float u = fx * pcx / zs + static_cast<float>(width / 2.0);
-  const float v = fy * pcy / zs + static_cast<float>(height / 2.0);
-
-  // Sigma3 = R_q diag(exp(2 s)) R_q^T from the normalised quaternion
-  const float w0 = s_quats[g], x0 = s_quats[kPitch + g],
-              y0 = s_quats[2 * kPitch + g], q0 = s_quats[3 * kPitch + g];
-  const float norm = sqrtf((w0 * w0 + y0 * y0) + (x0 * x0 + q0 * q0));
-  const float qw = w0 / norm, qx = x0 / norm, qy = y0 / norm,
-              qz = q0 / norm;
-  const float r00 = 1.0f - 2.0f * (qy * qy + qz * qz);
-  const float r01 = 2.0f * (qx * qy - qw * qz);
-  const float r02 = 2.0f * (qx * qz + qw * qy);
-  const float r10 = 2.0f * (qx * qy + qw * qz);
-  const float r11 = 1.0f - 2.0f * (qx * qx + qz * qz);
-  const float r12 = 2.0f * (qy * qz - qw * qx);
-  const float r20 = 2.0f * (qx * qz - qw * qy);
-  const float r21 = 2.0f * (qy * qz + qw * qx);
-  const float r22 = 1.0f - 2.0f * (qx * qx + qy * qy);
-  const float e0 = expf(2.0f * s_scales[g]);
-  const float e1 = expf(2.0f * s_scales[kPitch + g]);
-  const float e2 = expf(2.0f * s_scales[2 * kPitch + g]);
-  const float s00 = (r00 * e0 * r00 + r01 * e1 * r01) + r02 * e2 * r02;
-  const float s01 = (r00 * e0 * r10 + r01 * e1 * r11) + r02 * e2 * r12;
-  const float s02 = (r00 * e0 * r20 + r01 * e1 * r21) + r02 * e2 * r22;
-  const float s11 = (r10 * e0 * r10 + r11 * e1 * r11) + r12 * e2 * r12;
-  const float s12 = (r10 * e0 * r20 + r11 * e1 * r21) + r12 * e2 * r22;
-  const float s22 = (r20 * e0 * r20 + r21 * e1 * r21) + r22 * e2 * r22;
-
-  // T = J R, with J the 2x3 perspective Jacobian; Sigma2 = T Sigma3 T^T
-  const float inv_z = 1.0f / zs;
-  const float inv_z2 = inv_z * inv_z;
-  const float f0 = fx * inv_z;
-  const float g0 = fx * pcx * inv_z2;
-  const float f1 = fy * inv_z;
-  const float g1 = fy * pcy * inv_z2;
-  const float t00 = f0 * r[0] - g0 * r[6];
-  const float t01 = f0 * r[1] - g0 * r[7];
-  const float t02 = f0 * r[2] - g0 * r[8];
-  const float t10 = f1 * r[3] - g1 * r[6];
-  const float t11 = f1 * r[4] - g1 * r[7];
-  const float t12 = f1 * r[5] - g1 * r[8];
-  const float st00 = (s00 * t00 + s01 * t01) + s02 * t02;
-  const float st01 = (s01 * t00 + s11 * t01) + s12 * t02;
-  const float st02 = (s02 * t00 + s12 * t01) + s22 * t02;
-  const float st10 = (s00 * t10 + s01 * t11) + s02 * t12;
-  const float st11 = (s01 * t10 + s11 * t11) + s12 * t12;
-  const float st12 = (s02 * t10 + s12 * t11) + s22 * t12;
-  const float a = ((t00 * st00 + t01 * st01) + t02 * st02) + blur;
-  const float b = (t10 * st00 + t11 * st01) + t12 * st02;
-  const float c = ((t10 * st10 + t11 * st11) + t12 * st12) + blur;
-  const float det = a * c - b * b;
-  valid = valid && (det > 0.0f);
-  const float det_safe = det > 0.0f ? det : 1.0f;
-  const float inv_det = 1.0f / det_safe;
+  const Geometry G = geometry(
+      cam, mx, my, mz, s_scales[g], s_scales[kPitch + g],
+      s_scales[2 * kPitch + g], s_quats[g], s_quats[kPitch + g],
+      s_quats[2 * kPitch + g], s_quats[3 * kPitch + g], blur, z_near, z_far);
+  bool valid = G.in_depth;
+  const float u = cam.fx * G.pcx / G.zs + static_cast<float>(width / 2.0);
+  const float v = cam.fy * G.pcy / G.zs + static_cast<float>(height / 2.0);
+  const float a = G.a, b = G.b, c = G.c;
+  valid = valid && (G.det > 0.0f);
 
   const float opacity = 1.0f / (1.0f + expf(-s_opac[g]));
   const float mid = 0.5f * (a + c);
-  const float lam1 = mid + sqrtf(clamp_min(mid * mid - det_safe, 0.0f));
+  const float lam1 = mid + sqrtf(clamp_min(mid * mid - G.det_safe, 0.0f));
   // opacity-aware cutoff: alpha >= alpha_min is impossible beyond
   // sqrt(2 ln(opacity / alpha_min)) sigmas
   float cutoff = sqrtf(2.0f * logf(clamp_min(opacity * inv_alpha_min,
@@ -223,44 +100,15 @@ __global__ void __launch_bounds__(kThreads) project_kernel(
   valid = valid && (v + ey > 0.0f) && (v - ey < static_cast<float>(height));
 
   // SH colour along the unit view direction (1e-12 floor on its length)
-  const float dx = mx - p0, dy = my - p1, dz = mz - p2;
-  const float inv_n = 1.0f / clamp_min(sqrtf((dx * dx + dy * dy) + dz * dz),
-                                       kNormFloor);
-  const float x = dx * inv_n, y = dy * inv_n, zd = dz * inv_n;
-  const float xx = x * x, yy = y * y, zz = zd * zd;
-  const float xy = x * y, yz = y * zd, xz = x * zd;
+  const Direction d = direction(cam, mx, my, mz);
   float rgb[3];
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    const float* s = s_sh + ch * kPitch + g;  // coefficient k at 3 k kPitch
-    float col = kC0 * s[0];
-    if (K > 1 && bands >= 1) {
-      col = ((col - kC1 * y * s[3 * kPitch]) + kC1 * zd * s[6 * kPitch])
-            - kC1 * x * s[9 * kPitch];
-    }
-    if (K > 4 && bands >= 2) {
-      col = ((((col + kC2_0 * xy * s[12 * kPitch])
-               + kC2_1 * yz * s[15 * kPitch])
-              + kC2_2 * (2.0f * zz - xx - yy) * s[18 * kPitch])
-             + kC2_3 * xz * s[21 * kPitch])
-            + kC2_4 * (xx - yy) * s[24 * kPitch];
-    }
-    if (K > 9 && bands >= 3) {
-      col = ((((((col + kC3_0 * y * (3.0f * xx - yy) * s[27 * kPitch])
-                 + kC3_1 * xy * zd * s[30 * kPitch])
-                + kC3_2 * y * (4.0f * zz - xx - yy) * s[33 * kPitch])
-               + kC3_3 * zd * (2.0f * zz - 3.0f * xx - 3.0f * yy)
-                     * s[36 * kPitch])
-              + kC3_4 * x * (4.0f * zz - xx - yy) * s[39 * kPitch])
-             + kC3_5 * zd * (xx - yy) * s[42 * kPitch])
-            + kC3_6 * x * (xx - 3.0f * yy) * s[45 * kPitch];
-    }
-    rgb[ch] = clamp_min(col + 0.5f, 0.0f);
-  }
+  for (int ch = 0; ch < 3; ++ch)
+    rgb[ch] = clamp_min(sh_colour<K>(s_sh + ch * kPitch + g, bands, d), 0.0f);
 
   // the fields of render/projection.py::Projected, in its order
   const float vals[kFields] = {
-      u, v, c * inv_det, -b * inv_det, a * inv_det, z,
+      u, v, c * G.inv_det, -b * G.inv_det, a * G.inv_det, G.z,
       cutoff * sqrtf(clamp_min(lam1, 0.0f)), ex, ey, cutoff * cutoff,
       rgb[0], rgb[1], rgb[2], opacity};
 #pragma unroll

@@ -2,15 +2,19 @@
 
 Counterpart of ``gsplat_tpu.models.trainer`` on one device, with the same
 names and call signatures, so a test drives both the same way. Gradients
-come from torch autograd through the renderer, whose blend is one
-``torch.autograd.Function`` (``render/api.py::BlendSceneTiles``): kernel B1
-forward, B2 and the fold (``csrc/fold_rows.cu``) backward on the card, their
-plain versions on the CPU. A step runs on the device its state lies on.
-Under a profiler a step's stages are spans (``utils/profiling.py::span``):
-the render's own, then ``gsplat.loss`` (the photometric loss),
-``gsplat.backward`` (``torch.autograd.grad`` and the gradients' sum, on the
-calling thread; B2 and the fold open ``gsplat.blend_bwd`` and
-``gsplat.fold`` on autograd's thread) and ``gsplat.adam``.
+come from torch autograd through the renderer, whose blend and projection
+are each one ``torch.autograd.Function``: the blend
+(``render/api.py::BlendSceneTiles``) kernel B1 forward, B2 and the fold
+(``csrc/fold_rows.cu``) backward on the card; the projection and SH
+(``render/projection.py::project``) ``csrc/project.cu`` forward and
+``csrc/project_bwd.cu`` backward on the card; their plain versions (and
+autograd through the plain projection) on the CPU. A step runs on the
+device its state lies on. Under a profiler a step's stages are spans
+(``utils/profiling.py::span``): the render's own, then ``gsplat.loss`` (the
+photometric loss), ``gsplat.backward`` (``torch.autograd.grad`` and the
+gradients' sum, on the calling thread; B2, the fold and the projection's
+backward open ``gsplat.blend_bwd``, ``gsplat.fold`` and
+``gsplat.project_bwd`` on autograd's thread) and ``gsplat.adam``.
 
 The optimizer is a small hand-written Adam over the five parameter tensors,
 step for step the JAX package's ``optax.chain(scale_by_adam(), per-field
@@ -42,7 +46,8 @@ from gsplat_tpu_torch.parallel.mesh import (Mesh, Sharded, ShardedScene,
 from gsplat_tpu_torch.parallel.render_sharded import render_sharded
 from gsplat_tpu_torch.render.api import _render_impl
 from gsplat_tpu_torch.render.projection import CameraParams
-from gsplat_tpu_torch.scene import DeviceLike, GaussianScene, resolve_device
+from gsplat_tpu_torch.scene import (DeviceLike, GaussianScene, SceneParams,
+                                   resolve_device)
 from gsplat_tpu_torch.utils.profiling import span
 
 # Standard 3DGS-style per-parameter learning-rate scaling.
@@ -52,25 +57,6 @@ LR_SCALES = dict(means=1.0, log_scales=0.05, quats=0.01, opacities=0.5,
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
-
-
-class SceneParams(NamedTuple):
-    """The float trainable tensors (labels ride outside the optimizer)."""
-
-    means: torch.Tensor
-    log_scales: torch.Tensor
-    quats: torch.Tensor
-    opacities: torch.Tensor
-    sh: torch.Tensor
-
-    @classmethod
-    def from_scene(cls, scene: GaussianScene) -> "SceneParams":
-        return cls(scene.means, scene.log_scales, scene.quats,
-                   scene.opacities, scene.sh)
-
-    def to_scene(self, labels: torch.Tensor) -> GaussianScene:
-        return GaussianScene(self.means, self.log_scales, self.quats,
-                             self.opacities, self.sh, labels)
 
 
 class AdamState(NamedTuple):

@@ -11,8 +11,9 @@ kernel B1, backward kernel B2 and the gradient fold of :func:`fold_rows`
 (``csrc/fold_rows.cu``). Kernel B3 and the boundary gathers of
 :func:`segment_sums`, the JAX package's fold, remain for the probes.
 Projection and SH (``render/projection.py::project``) are one launch of
-``csrc/project.cu`` where no gradient is recorded, else plain torch whose
-VJP autograd derives.
+``csrc/project.cu`` on the card; where a gradient is recorded there, its
+backward is one launch of ``csrc/project_bwd.cu`` (an ``autograd.Function``
+too). On the CPU they are plain torch whose VJP autograd derives.
 ``render(impl="pallas_vis")`` is the labeler's visibility render over kernel
 B5 (:func:`_render_vis_impl`); ``render(impl="dense")`` the small-scene
 oracle of ``render/blend_dense.py``. :func:`measure_budgets` and

@@ -18,7 +18,7 @@ scene with the same bits; ``GaussianScene.to_numpy`` goes back.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -68,6 +68,26 @@ class GaussianScene:
         """The scene's arrays, keyed by field name (``scene_from_numpy(**d)``
         rebuilds the scene)."""
         return {f: getattr(self, f).detach().cpu().numpy() for f in FIELDS}
+
+
+class SceneParams(NamedTuple):
+    """The float trainable tensors (labels ride outside the optimizer), or
+    their gradients."""
+
+    means: torch.Tensor
+    log_scales: torch.Tensor
+    quats: torch.Tensor
+    opacities: torch.Tensor
+    sh: torch.Tensor
+
+    @classmethod
+    def from_scene(cls, scene: GaussianScene) -> "SceneParams":
+        return cls(scene.means, scene.log_scales, scene.quats,
+                   scene.opacities, scene.sh)
+
+    def to_scene(self, labels: torch.Tensor) -> GaussianScene:
+        return GaussianScene(self.means, self.log_scales, self.quats,
+                             self.opacities, self.sh, labels)
 
 
 def scene_from_numpy(means, log_scales, quats, opacities, sh,

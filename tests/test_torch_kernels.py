@@ -760,7 +760,8 @@ def test_render_gradients_on_card_match_cpu(card):
         size=(96, 128, 3)).astype(np.float32))
     grads = {}
     before = (blend.blend_tiles_bwd.launches, api.fold_rows.launches,
-              blend.cumsum_rows.launches, api.segment_sums.launches)
+              blend.cumsum_rows.launches, api.segment_sums.launches,
+              projection.project.launches, projection.project_bwd.launches)
     for dev in (card, torch.device("cpu")):
         s = scene.to(dev)
         params = trainer.SceneParams.from_scene(s)
@@ -770,10 +771,13 @@ def test_render_gradients_on_card_match_cpu(card):
         loss = trainer.l2_loss(out["image"], target.to(dev))
         grads[dev.type] = [g.cpu() for g in torch.autograd.grad(loss, params)]
     # the card's backward: B2 and the fold once each; B3 and the boundary
-    # gathers are no longer on the path
+    # gathers are no longer on the path; the projection's forward and
+    # backward kernels once each
     assert (blend.blend_tiles_bwd.launches, api.fold_rows.launches,
-            blend.cumsum_rows.launches, api.segment_sums.launches) == (
-        before[0] + 1, before[1] + 1, before[2], before[3])
+            blend.cumsum_rows.launches, api.segment_sums.launches,
+            projection.project.launches, projection.project_bwd.launches
+            ) == (before[0] + 1, before[1] + 1, before[2], before[3],
+                  before[4] + 1, before[5] + 1)
     # projection runs through the card's and the host's exp/log/sqrt, which
     # may move one alpha across the 1/255 cut: 1e-3 of each tensor's peak
     for f, g_card, g_cpu in zip(trainer.SceneParams._fields, grads["cuda"],

@@ -2,6 +2,7 @@
 ``render/projection.py::project``: on the card, equal to the plain version
 ``_project_plain`` bit for bit in every field; on the CPU, the rule that
 chooses between the two, the wrapper's argument checks and its launch count.
+Its backward kernel is ``tests/test_torch_project_bwd.py``'s.
 
 This file imports neither jax nor ``gsplat_tpu``, so on a machine with a card
 and only PyTorch it runs without the JAX harness of ``conftest.py``:
@@ -150,21 +151,32 @@ def test_kernel_equals_plain_at_main_path_size(card):
 
 @pytest.mark.gpu
 def test_kernel_takes_no_grad_calls_only(card):
+    """Which calls on the card launch the kernel (since the projection got
+    its backward kernel, every call but one whose camera requires grad):
+    a call that records a gradient of a scene field launches it once, as
+    the forward of the autograd.Function; a camera that requires grad
+    takes the plain code; a call without grad launches it; an empty scene
+    launches nothing."""
     scene = _scene(500, seed=3, device=card)
     cam = _camera(card)
     before = projection.project.launches
     scene.means.requires_grad_(True)
     got = projection.project(scene, cam, W, H, RC)
+    assert "_ProjectFunction" in type(got.u.grad_fn).__name__
+    assert projection.project.launches == before + 1
+    rot = cam.rot.clone().requires_grad_(True)
+    got = projection.project(scene, cam._replace(rot=rot), W, H, RC)
     assert got.u.grad_fn is not None
-    assert projection.project.launches == before
+    assert "_ProjectFunction" not in type(got.u.grad_fn).__name__
+    assert projection.project.launches == before + 1
     with torch.no_grad():
         got = projection.project(scene, cam, W, H, RC)
-    assert projection.project.launches == before + 1
+    assert projection.project.launches == before + 2
     empty = GaussianScene(*(t[:0] for t in (
         scene.means, scene.log_scales, scene.quats, scene.opacities,
         scene.sh, scene.labels)))
     out = projection.project(empty, cam, W, H, RC)
-    assert projection.project.launches == before + 1
+    assert projection.project.launches == before + 2
     assert out.u.shape == (0,) and out.valid.dtype == torch.bool
 
 
