@@ -250,18 +250,14 @@ def shard_binning(rows: torch.Tensor, shard: int, layout, cfg: Config):
     its received exchange rows (stage 3 of :func:`render_sharded`, before
     the blend)."""
     dy, dx, tx_l, ty_l = layout
-    rc = cfg.raster
-    ts = rc.tile_size
+    ts = cfg.raster.tile_size
     lat = _lattice(shard, dy, dx)
     projf = _unpack_compact(rows)
     binning = bin_tiles(projf, tiles_x=tx_l, tiles_y=ty_l, tile_size=ts,
                         **lat._asdict())
     ptab = pack_table(projf, rows[:, 15].to(torch.int32))
-    settings = BlendSettings(
-        tiles_x=tx_l, tiles_y=ty_l, tile_size=ts, width=tx_l * ts,
-        height=ty_l * ts, chunk=cfg.tiles.chunk, alpha_min=rc.alpha_min,
-        alpha_max=rc.alpha_max, early_eps=rc.early_stop_eps, lattice=lat)
-    return ptab, binning, settings
+    return ptab, binning, BlendSettings.from_config(
+        cfg, tx_l, ty_l, tx_l * ts, ty_l * ts, lattice=lat)
 
 
 def render_sharded(

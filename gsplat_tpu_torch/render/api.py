@@ -10,10 +10,12 @@ the counterpart of ``blend_scene_windows`` and its custom VJP): forward
 kernel B1, backward kernel B2 and the gradient fold of :func:`fold_rows`
 (``csrc/fold_rows.cu``). Kernel B3 and the boundary gathers of
 :func:`segment_sums`, the JAX package's fold, remain for the probes.
-Projection and SH (``render/projection.py::project``) are one launch of
-``csrc/project.cu`` on the card; where a gradient is recorded there, its
-backward is one launch of ``csrc/project_bwd.cu`` (an ``autograd.Function``
-too). On the CPU they are plain torch whose VJP autograd derives.
+Projection and SH (``render/projection.py::project``) follow the same rule:
+where a scene field records a gradient they are one ``autograd.Function`` on
+both devices, kernels ``csrc/project.cu`` and ``csrc/project_bwd.cu`` on the
+card and their plain versions on the CPU; a camera that requires grad keeps
+the plain code and autograd. The blend's settings come from
+:meth:`BlendSettings.from_config` alone.
 ``render(impl="pallas_vis")`` is the labeler's visibility render over kernel
 B5 (:func:`_render_vis_impl`); ``render(impl="dense")`` the small-scene
 oracle of ``render/blend_dense.py``. :func:`measure_budgets` and
@@ -59,7 +61,7 @@ def pack_table(proj: Projected, labels: torch.Tensor) -> torch.Tensor:
 class BlendSettings(NamedTuple):
     """The blend kernels' static arguments. The lattice is the sharded
     render's (``render/tiles.py::Lattice``); the default is the whole
-    grid."""
+    grid. :meth:`from_config` makes them."""
 
     tiles_x: int
     tiles_y: int
@@ -71,6 +73,18 @@ class BlendSettings(NamedTuple):
     alpha_max: float
     early_eps: float
     lattice: Lattice = FULL
+
+    @classmethod
+    def from_config(cls, cfg: Config, tiles_x: int, tiles_y: int, width: int,
+                    height: int, lattice: Lattice = FULL) -> "BlendSettings":
+        """The settings of a grid of ``tiles_x`` x ``tiles_y`` tiles over
+        ``width`` x ``height`` pixels; tile size, chunk, alpha bounds and
+        early stop from ``cfg``."""
+        rc = cfg.raster
+        return cls(tiles_x=tiles_x, tiles_y=tiles_y, tile_size=rc.tile_size,
+                   width=width, height=height, chunk=cfg.tiles.chunk,
+                   alpha_min=rc.alpha_min, alpha_max=rc.alpha_max,
+                   early_eps=rc.early_stop_eps, lattice=lattice)
 
 
 def enumeration_rows(drows: torch.Tensor, je_sorted: torch.Tensor
@@ -310,9 +324,10 @@ def blend_scene_tiles(ptab: torch.Tensor, binning: TileBinning,
 
 def _project_bin_pack(scene: GaussianScene, cam: CameraParams, width: int,
                       height: int, cfg: Config
-                      ) -> Tuple[TileBinning, torch.Tensor]:
+                      ) -> Tuple[TileBinning, torch.Tensor, BlendSettings]:
     """The stages before the blend, each in its span: the projection (and
-    SH), the binning and the blend kernels' parameter table."""
+    SH), the binning and the blend kernels' parameter table; and the
+    blend's settings for the view's grid."""
     rc = cfg.raster
     with span("gsplat.project"):
         proj = project(scene, cam, width, height, rc,
@@ -323,20 +338,15 @@ def _project_bin_pack(scene: GaussianScene, cam: CameraParams, width: int,
                             tile_size=rc.tile_size)
     with span("gsplat.pack"):
         ptab = pack_table(proj, scene.labels)
-    return binning, ptab
+    return binning, ptab, BlendSettings.from_config(cfg, tiles_x, tiles_y,
+                                                    width, height)
 
 
 def _render_impl(scene: GaussianScene, cam: CameraParams,
                  background: torch.Tensor, *, width: int, height: int,
                  cfg: Config, with_labels: bool) -> Dict[str, torch.Tensor]:
-    rc = cfg.raster
-    binning, ptab = _project_bin_pack(scene, cam, width, height, cfg)
-    tiles_x, tiles_y = tile_grid(width, height, rc.tile_size)
-    settings = BlendSettings(
-        tiles_x=tiles_x, tiles_y=tiles_y, tile_size=rc.tile_size,
-        width=width, height=height, chunk=cfg.tiles.chunk,
-        alpha_min=rc.alpha_min, alpha_max=rc.alpha_max,
-        early_eps=rc.early_stop_eps)
+    binning, ptab, settings = _project_bin_pack(scene, cam, width, height,
+                                                cfg)
     with span("gsplat.blend"):
         out = blend_scene_tiles(ptab, binning, settings, with_labels)
         transmit = out.transmittance
@@ -369,15 +379,14 @@ def _render_vis_impl(scene: GaussianScene, cam: CameraParams,
     (max blend weight over any pixel of the gaussian's tiles), the evidence
     of the occlusion-aware vote. No early stop (kernel B5 has none, as the
     JAX kernel has none). Not differentiable."""
-    rc = cfg.raster
-    binning, ptab = _project_bin_pack(scene, cam, width, height, cfg)
-    tiles_x, tiles_y = tile_grid(width, height, rc.tile_size)
+    binning, ptab, settings = _project_bin_pack(scene, cam, width, height,
+                                                cfg)
+    b5 = settings._asdict()      # B5 has no early stop and no lattice
+    del b5["early_eps"], b5["lattice"]
     with span("gsplat.blend"):
         out, inst_w = blend.blend_tiles_vis(
-            ptab, binning.inst_gauss, binning.tile_bounds, tiles_x=tiles_x,
-            tiles_y=tiles_y, tile_size=rc.tile_size, width=width,
-            height=height, chunk=cfg.tiles.chunk, alpha_min=rc.alpha_min,
-            alpha_max=rc.alpha_max, with_labels=with_labels)
+            ptab, binning.inst_gauss, binning.tile_bounds, **b5,
+            with_labels=with_labels)
         transmit = out.transmittance
         result = dict(image=out.rgb + transmit[..., None] * background,
                       alpha=1.0 - transmit, transmittance=transmit,

@@ -6,18 +6,19 @@ camera transform, perspective Jacobian, Sigma2 = (J W) Sigma3 (J W)^T + blur,
 conic, opacity-aware cutoff, culling mask, SH colour. :func:`_project_plain`
 keeps the JAX package's elementwise structure-of-arrays form (every field
 [N], no [N, 3, 3] matmul), so no matrix product and therefore no TF32
-rounding can enter on the card; autograd derives its VJP. Semantics are
-those of the NumPy oracle ``gsplat_tpu/ref/rasterizer.py``.
+rounding can enter on the card. Semantics are those of the NumPy oracle
+``gsplat_tpu/ref/rasterizer.py``.
 
-:func:`project` chooses from what its inputs show. CUDA tensors take one
-launch of ``csrc/project.cu``, equal to the plain code bit for bit; where
-the call records a gradient of the scene's fields, that launch is the
-forward of an ``autograd.Function`` whose backward is one launch of
-``csrc/project_bwd.cu`` (:func:`project_bwd`), the analytic VJP that
-:func:`_project_vjp_plain` writes out in plain torch and that the kernel
-equals bit for bit. CPU tensors, and calls where a camera tensor requires
-grad (the kernels compute no camera gradient), take the plain code and
-autograd.
+:func:`project` takes one of three routes, the same on both devices. A call
+where a camera tensor requires grad (the kernels compute no camera gradient)
+is the plain code, differentiated by autograd. A call that records no
+gradient is :func:`_project_fields`. Any other call is one
+``autograd.Function`` whose forward is :func:`_project_fields` and whose
+backward is :func:`project_bwd`. Each of those two wrappers takes its kernel
+for CUDA tensors and its plain version for CPU tensors: ``csrc/project.cu``,
+equal to :func:`_project_plain` bit for bit, and ``csrc/project_bwd.cu``,
+equal bit for bit to :func:`_project_vjp_plain`, the analytic VJP written
+out in plain torch.
 """
 
 from __future__ import annotations
@@ -287,13 +288,6 @@ def _records_grad(scene: GaussianScene, cam: CameraParams) -> bool:
                                   scene.opacities, scene.sh, *cam))
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    """Whether ``t`` lies where the projection's kernels run: the grad rule
-    of :func:`project` reads it (the wrappers take the plain versions for
-    CPU tensors)."""
-    return t.device.type == "cuda"
-
-
 def _sh_bands(k: int, sh_degree: int | None) -> int:
     """SH bands past the DC term that :func:`eval_sh_soa` evaluates."""
     if sh_degree is not None:
@@ -554,10 +548,11 @@ def _project_fields(scene, cam: CameraParams, st: _Static) -> Projected:
 
 
 class _ProjectFunction(torch.autograd.Function):
-    """:func:`project` with a gradient for the scene's five fields: forward
-    :func:`_project_fields` (one launch of ``csrc/project.cu`` on the card),
-    backward :func:`project_bwd` (one launch of ``csrc/project_bwd.cu``,
-    span ``gsplat.project_bwd``, on autograd's thread). Only the inputs are
+    """:func:`project` with a gradient for the scene's five fields, on both
+    devices: forward :func:`_project_fields` (one launch of
+    ``csrc/project.cu`` on the card), backward :func:`project_bwd` (one
+    launch of ``csrc/project_bwd.cu`` on the card, span
+    ``gsplat.project_bwd``, on autograd's thread). Only the inputs are
     saved; the backward recomputes the rest. ``radius``, ``ex``, ``ey``,
     ``qmax`` and ``valid`` are not differentiable; a gradient autograd does
     not materialise reaches the kernel as a null pointer."""
@@ -604,28 +599,32 @@ def project(
 ) -> Projected:
     """Project all gaussians into one camera.
 
-    The rule follows the inputs. Where autograd records (grad mode on and
-    any of the scene's five float fields or the camera's tensors requiring
-    grad) and the tensors are on the CPU or a camera tensor requires grad,
-    this is the plain differentiable code, :func:`_project_plain`, whose
-    VJP autograd derives (the kernels compute no camera gradient). Otherwise
-    the inputs must be contiguous f32: means and log-scales [N, 3],
-    quaternions [N, 4], opacities [N], SH [N, K, 3] with K in 1, 4, 9, 16,
-    the camera's rotation [3, 3], position [3] and focal lengths [], all on
-    one device. CUDA tensors take one launch of ``csrc/project.cu`` (one
-    thread a gaussian, its rows staged through shared memory with 16-byte
-    loads; bound by bytes), whose fields are rows of one [14, N] array and
-    equal the plain code's bit for bit; CPU tensors without a gradient the
-    plain code. Where the CUDA call records a gradient it is one
-    ``torch.autograd.Function`` (:class:`_ProjectFunction`): ``u``, ``v``,
-    ``ca``, ``cb``, ``cc``, ``depth``, ``red``, ``green``, ``blue`` and
-    ``opacity`` are differentiable, and the backward is one launch of
-    ``csrc/project_bwd.cu`` (:func:`project_bwd`); ``radius``, ``ex``,
-    ``ey``, ``qmax`` (whose derivative is infinite where the cutoff is 0)
-    and ``valid`` are not. Replaces XLA glue, not a Pallas kernel."""
+    The inputs are the scene's five float fields and the camera's tensors:
+    contiguous f32 means and log-scales [N, 3], quaternions [N, 4],
+    opacities [N], SH [N, K, 3] with K in 1, 4, 9, 16, the camera's rotation
+    [3, 3], position [3] and focal lengths [], all on one device. A call
+    takes one of three routes:
+
+    1. A camera tensor requires grad (the kernels compute no camera
+       gradient): :func:`_project_plain`, differentiated by autograd.
+    2. No gradient is recorded: :func:`_project_fields`, the plain code on
+       the CPU and one launch of ``csrc/project.cu`` on the card (one thread
+       a gaussian, its rows staged through shared memory with 16-byte loads;
+       bound by bytes), whose fields are rows of one [14, N] array and equal
+       the plain code's bit for bit.
+    3. Otherwise: one ``torch.autograd.Function`` (:class:`_ProjectFunction`)
+       whose forward is :func:`_project_fields` and whose backward is
+       :func:`project_bwd` (:func:`_project_vjp_plain` on the CPU, one launch
+       of ``csrc/project_bwd.cu`` on the card). ``u``, ``v``, ``ca``,
+       ``cb``, ``cc``, ``depth``, ``red``, ``green``, ``blue`` and
+       ``opacity`` are differentiable; ``radius``, ``ex``, ``ey``, ``qmax``
+       (whose derivative is infinite where the cutoff is 0) and ``valid``
+       are not.
+
+    Routes 2 and 3 check the inputs first. Replaces XLA glue, not a Pallas
+    kernel."""
     grad = _records_grad(scene, cam)
-    if grad and (not _on_card(scene.means)
-                 or any(t.requires_grad for t in cam)):
+    if grad and any(t.requires_grad for t in cam):
         return _project_plain(scene, cam, width, height, cfg, z_near=z_near,
                               z_far=z_far, sh_degree=sh_degree)
     _check_inputs(scene, cam)

@@ -1,5 +1,5 @@
 """Where the time of the blend kernels B1, B5 and B2, of the key
-enumeration B4 and of the gradient fold's boundary gathers goes on the card.
+enumeration B4 and of the prefix sum B3 goes on the card.
 
     python -m gsplat_tpu_torch.utils.blend_probe [--out PATH]
         [--b3-source PATH]
@@ -34,12 +34,7 @@ measurement and writes them all to ``--out`` (default
   source with the same C entry point, e.g. an earlier design from git
   history, held against float64), timed in turns with the committed build
   as CUDA graph replays and under CUDA events, beside a copy of the array
-  (``clone``);
-- ``segment_sum_ops``: each torch op of the fold's plain boundary gathers
-  (``render.api._segment_sums_plain``) on this frame's fold, timed alone
-  (CUDA events), beside the kernel that replaces them
-  (``render.api.segment_sums``). ``chip_smoke.py`` runs the same split on
-  the training state's fold.
+  (``clone``).
 
 Needs the card and ``nvcc``; the builds go to ``build/blend_probe/``.
 """
@@ -62,9 +57,7 @@ from gsplat_tpu_torch.config import DEFAULT
 from gsplat_tpu_torch.io.cameras import look_at_camera, orbit_cameras
 from gsplat_tpu_torch.io.synthetic import random_scene
 from gsplat_tpu_torch.render import blend
-from gsplat_tpu_torch.render.api import (_segment_sums_plain,
-                                         enumeration_rows, pack_table,
-                                         segment_sums)
+from gsplat_tpu_torch.render.api import pack_table
 from gsplat_tpu_torch.render.projection import (CameraParams, project,
                                                 tile_grid)
 from gsplat_tpu_torch.render.tiles import (bin_tiles, depth_qkeys,
@@ -476,42 +469,6 @@ def b3_variants(device, source=None) -> list:
     return rows_out
 
 
-def segment_sum_ops(cs: torch.Tensor, enum_start: torch.Tensor,
-                    enum_cnt: torch.Tensor) -> dict:
-    """Milliseconds (CUDA events, median of 5 after a warm-up) of each
-    torch op of ``_segment_sums_plain``, run one at a time on its own
-    inputs, of the whole plain function and of the kernel."""
-    b = cs.shape[0]
-    start = enum_start.long()
-    cnt = enum_cnt.long()
-    zero = torch.zeros((), device=cs.device)
-    hi_idx = torch.clamp(start + cnt - 1, 0, b - 1)
-    lo_idx = torch.clamp_min(start - 1, 0)
-    hi, lo_rows = cs[hi_idx], cs[lo_idx]
-    lo = torch.where((start > 0)[:, None], lo_rows, zero)
-    diff = hi - lo
-    ops = (
-        ("enum_start.long()", lambda: enum_start.long()),
-        ("enum_cnt.long()", lambda: enum_cnt.long()),
-        ("zeros(())", lambda: torch.zeros((), device=cs.device)),
-        ("clamp(start + cnt - 1)", lambda: torch.clamp(start + cnt - 1, 0,
-                                                       b - 1)),
-        ("cs[hi_idx]", lambda: cs[hi_idx]),
-        ("clamp_min(start - 1)", lambda: torch.clamp_min(start - 1, 0)),
-        ("cs[lo_idx]", lambda: cs[lo_idx]),
-        ("where(start > 0)", lambda: torch.where((start > 0)[:, None],
-                                                 lo_rows, zero)),
-        ("hi - lo", lambda: hi - lo),
-        ("where(cnt > 0)", lambda: torch.where((cnt > 0)[:, None], diff,
-                                               zero)),
-        ("plain, whole", lambda: _segment_sums_plain(cs, enum_start,
-                                                     enum_cnt)),
-        ("kernel", lambda: segment_sums(cs, enum_start, enum_cnt)))
-    return {"rows": b, "gaussians": start.numel(),
-            "without_slots": int((cnt == 0).sum()),
-            "ms": {name: _ms(fn, reps=5) for name, fn in ops}}
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(DEFAULT_OUT))
@@ -523,7 +480,7 @@ def main(argv=None) -> int:
         return 1
     device = torch.device("cuda", 0)
     _kernels.build(("enum_keys", "blend_fwd", "blend_bwd", "blend_vis",
-                    "cumsum_rows", "fold_segments"))
+                    "cumsum_rows"))
     fr = _Frame(device)
     b = fr.binning.tile_bounds
     report = {"device": torch.cuda.get_device_name(0),
@@ -539,10 +496,7 @@ def main(argv=None) -> int:
     report["variants"] = (blend_variants(fr, "blend_fwd")
                           + blend_variants(fr, "blend_bwd"))
     report["enum_variants"] = enum_variants(device, fr)
-    rows = enumeration_rows(fr.bwd(), fr.binning.je_sorted)
     report["b3_variants"] = b3_variants(device, args.b3_source)
-    report["segment_sum_ops"] = segment_sum_ops(
-        blend.cumsum_rows(rows), fr.binning.enum_start, fr.binning.enum_cnt)
     for key, value in report.items():
         print(json.dumps({key: value}), flush=True)
     out = Path(args.out)

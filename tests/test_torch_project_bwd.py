@@ -1,15 +1,15 @@
 """The projection's backward: ``render/projection.py::project_bwd`` (kernel
 ``csrc/project_bwd.cu``) and its plain version ``_project_vjp_plain``, and
-the rule by which ``project`` takes the autograd.Function of the two
-kernels.
+the rule by which ``project`` takes the autograd.Function of the two, which
+is the same on both devices.
 
 On the CPU: the plain VJP against float64 autograd through
 ``_project_plain`` (the scene of ``test_torch_project_kernel.py`` that meets
 every cull), exact zeros for gaussians without a gradient and for bands
-past ``sh_degree``, and the rule for each input that can require grad, on
-the CPU and, with the device check monkeypatched, on the kernel path. On the
-card (marker ``gpu``): the kernel equal to the plain VJP bit for bit, the
-same from run to run, one launch a backward.
+past ``sh_degree``, and the rule for each input that can require grad, the
+Function's halves taking their plain versions. On the card (marker
+``gpu``): the kernel equal to the plain VJP bit for bit, the same from run
+to run, one launch a backward.
 
 This file imports neither jax nor ``gsplat_tpu``:
 
@@ -157,25 +157,21 @@ def test_bands_past_sh_degree_get_zeros(k, sh_degree):
 ON_KERNEL_PATH = {"means", "log_scales", "quats", "opacities", "sh"}
 
 
-@pytest.mark.parametrize("kernel_path", [False, True])
 @pytest.mark.parametrize("field", ["means", "log_scales", "quats",
                                    "opacities", "sh", "rot", "fx"])
-def test_grad_rule(monkeypatch, field, kernel_path):
-    """Which code a grad-recording call takes: on the CPU the plain code;
-    on the kernel path (the device check monkeypatched, so the Function's
-    two halves take their plain versions on these CPU tensors) the Function
-    where only scene fields require grad, the plain code where a camera
-    tensor does. On the Function, the forward equals ``_project_plain`` and
-    the gradients ``_project_vjp_plain``, bit for bit, and the cutoff's
-    fields carry no gradient."""
-    if kernel_path:
-        monkeypatch.setattr(projection, "_on_card", lambda t: True)
+def test_grad_rule(field):
+    """Which code a grad-recording call takes (here on the CPU, where the
+    Function's two halves take their plain versions): the Function where
+    only scene fields require grad, the plain code where a camera tensor
+    does. On the Function, the forward equals ``_project_plain`` and the
+    gradients ``_project_vjp_plain``, bit for bit, and the cutoff's fields
+    carry no gradient."""
     scene = _scene(200, seed=11, degree=2)
     cam = _camera("cpu")
     holder = cam if field in CameraParams._fields else scene
     getattr(holder, field).requires_grad_(True)
     out = projection.project(scene, cam, W, H, RC, **KW)
-    kernel = kernel_path and field in ON_KERNEL_PATH
+    kernel = field in ON_KERNEL_PATH
     assert ("_ProjectFunction" in type(out.u.grad_fn).__name__) == kernel
     with torch.no_grad():
         want = projection._project_plain(scene, cam, W, H, RC,
@@ -195,11 +191,10 @@ def test_grad_rule(monkeypatch, field, kernel_path):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-def test_function_takes_unused_outputs_as_none(monkeypatch):
-    """On the kernel path a loss of u and red alone: the Function's
-    backward gets None for the other outputs, and its gradients equal the
-    plain VJP's with those gradients None."""
-    monkeypatch.setattr(projection, "_on_card", lambda t: True)
+def test_function_takes_unused_outputs_as_none():
+    """A loss of u and red alone: the Function's backward gets None for the
+    other outputs, and its gradients equal the plain VJP's with those
+    gradients None."""
     scene = _scene(150, seed=12, degree=3)
     fields = _fields(scene)
     leaves = SceneParams(*(t.clone().requires_grad_(True) for t in fields))

@@ -1,7 +1,8 @@
 """The projection kernel (``csrc/project.cu``) behind
 ``render/projection.py::project``: on the card, equal to the plain version
 ``_project_plain`` bit for bit in every field; on the CPU, the rule that
-chooses between the two, the wrapper's argument checks and its launch count.
+chooses between the two, the wrapper's argument checks (on every route but
+a camera's gradient) and its launch count.
 Its backward kernel is ``tests/test_torch_project_bwd.py``'s.
 
 This file imports neither jax nor ``gsplat_tpu``, so on a machine with a card
@@ -233,26 +234,27 @@ def test_cpu_call_takes_plain(monkeypatch):
 
 
 def test_grad_call_gives_plain_gradients(monkeypatch):
+    """A CPU call that records the scene's gradient: its gradients are
+    ``_project_vjp_plain``'s of the gradients autograd hands over, bit for
+    bit, and no kernel is fetched."""
     monkeypatch.setattr(_kernels, "function", _no_kernel)
-    leaves = []
-
-    def run(fn):
-        scene = _scene(300, seed=4, degree=2)
-        fields = (scene.means, scene.log_scales, scene.quats,
-                  scene.opacities, scene.sh)
-        for t in fields:
-            t.requires_grad_(True)
-        out = fn(scene, _camera("cpu"), W, H, RC, z_near=0.2, z_far=200.0,
-                 sh_degree=None)
-        loss = sum((getattr(out, f) * torch.linspace(0.5, 1.5, 300)).sum()
-                   for f in FIELDS)
-        leaves.append(torch.autograd.grad(loss, fields))
-
+    scene = _scene(300, seed=4, degree=2)
+    fields = (scene.means, scene.log_scales, scene.quats, scene.opacities,
+              scene.sh)
+    for t in fields:
+        t.requires_grad_(True)
+    w = torch.linspace(0.5, 1.5, 300)
     before = projection.project.launches
-    run(projection.project)
-    run(projection._project_plain)
+    out = projection.project(scene, _camera("cpu"), W, H, RC, z_near=0.2,
+                             z_far=200.0, sh_degree=None)
+    got = torch.autograd.grad(
+        sum((getattr(out, f) * w).sum() for f in projection.GRAD_FIELDS),
+        fields)
     assert projection.project.launches == before
-    for a, b in zip(*leaves):   # NaN where a mean sits on the camera
+    want = projection._project_vjp_plain(
+        scene, _camera("cpu"), RC, [w] * len(projection.GRAD_FIELDS),
+        z_near=0.2, z_far=200.0, sh_degree=None)
+    for a, b in zip(got, want):   # NaN where a mean sits on the camera
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
@@ -277,13 +279,18 @@ BAD_INPUTS = {
     ("sh [N, 5, 3]", ValueError), ("sh [N, 16, 2]", ValueError),
     ("fx [1]", ValueError), ("strided means", ValueError),
     ("strided sh", ValueError)])
-def test_wrapper_rejects(case, error):
+@pytest.mark.parametrize("grad", [False, True])
+def test_wrapper_rejects(case, error, grad):
+    """Each bad input is refused, also where the call records a gradient
+    of a scene field that the case leaves as it is."""
     scene, cam = _scene(20, seed=6), _camera("cpu")
     field, value = BAD_INPUTS[case]
     if field in CameraParams._fields:
         cam = cam._replace(**{field: value(scene, cam)})
     else:
         scene = dataclasses.replace(scene, **{field: value(scene, cam)})
+    if grad:
+        scene.log_scales.requires_grad_(True)   # no case replaces it
     before = projection.project.launches
     with pytest.raises(error):
         projection.project(scene, cam, W, H, RC)
