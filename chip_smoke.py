@@ -40,7 +40,12 @@ B. the twins of the repository's two measurement programs at their
    fold launched in the bench, B4 and B5 in the visible vote; then, on
    the visible vote's view 0 (tiles of up to ~70k instances), B4 keys
    equal to its plain version's, B5 within 1e-5 of its plain version, and
-   B1 at early_stop_eps 0 equal to B5 bit for bit;
+   B1 at early_stop_eps 0 equal to B5 bit for bit, or, where B1 split long
+   tiles (``blend.split_counts``), within 1e-5 with labels equal (its merge
+   associates the segments' products differently); and B1 within 1e-5 of
+   the one-block walk's plain version at eps 0 and the default, labels
+   equal, tiles split, and equal bit for bit to the split walk's plain
+   version with the launch's lengths (``check_b1_split``);
 2. the repo's bench frame (100k gaussians, 800x608, ``bench.py``): each
    kernel against its plain PyTorch version (B4 keys exactly equal, B1 within
    1e-5 at early_stop_eps 0 and at the default, labels equal; B2 within 1e-4
@@ -51,7 +56,12 @@ B. the twins of the repository's two measurement programs at their
    (image, T and best weight within 1e-5, labels equal, per-instance rows
    within 1e-5 and zero past the last tile), and both label votes on the
    card against the CPU on two small scenes; B1 at early_stop_eps 0 equal
-   to B5 bit for bit (image, T, best weight, label); the fold's boundary
+   to B5 bit for bit (image, T, best weight, label; within 1e-5 where B1
+   split a tile); then ``check_b1_split`` on a frame at the viewer cell's
+   shapes (the 2.4M gaussians of an m360-sized ball from radius 12 at
+   1237x822, tiles up to ~187k instances), where B1 splits tiles and its
+   merge walks some segments again (the tile's stop inside a later
+   segment); the fold's boundary
    gathers (``render.api.segment_sums``) equal to their plain version bit
    for bit on the frame's fold; the fold kernel (``render.api.fold_rows``)
    equal to its plain version bit for bit and from call to call, 0 on every
@@ -81,7 +91,7 @@ B. the twins of the repository's two measurement programs at their
    views at 800x608 through ``render``; outputs finite and covered, nothing
    dropped, B4 and B1 launched once per frame; then B4, B1, B2 and B5
    against their plain versions on one of those frames, B1 at eps 0 equal
-   to B5 bit for bit there, B3 against a
+   to B5 there (as in phase B), B3 against a
    float64 prefix sum on that frame's gradient fold (within 1e-6 of each
    column's peak prefix, and equal bit for bit over three calls with a
    call at the bench frame's size between them), and the boundary gathers
@@ -161,7 +171,9 @@ M. the multi-device path (``gsplat_tpu_torch/parallel/``) on phase 3's 2M
    scene at 800x608, view 0. M1: a process group of one rank over NCCL
    (``initialize_distributed``, ``make_mesh()``), the exchange and the
    image gather through NCCL's collectives: ``render_sharded`` with labels
-   bit-equal to ``render`` (image, transmittance, best weight, label map);
+   bit-equal to ``render`` (image, transmittance, best weight, label map;
+   B1 cuts a shard's long tiles by the whole frame's stream, as ``render``
+   cuts them);
    one sharded ``make_train_step`` step at phase 4's capacity, its loss
    bit-equal to the single-device step's and every gradient within 1e-3 of
    its peak; B4, B1, B2 and the fold launched once each in the step.
@@ -672,17 +684,86 @@ def check_b1(frame: Frame, tag: str) -> float:
 
 
 def check_b1_equals_b5(frame: Frame, tag: str) -> None:
-    """B5 is B1 with no early stop, the same operations in the same order:
-    at early_stop_eps 0 the two agree bit for bit."""
+    """B5 is B1's one-block walk with no early stop, the same operations in
+    the same order: at early_stop_eps 0 the two agree bit for bit where B1
+    split no tile. Where it split some (``blend.split_counts``), its merge
+    associates the segments' products differently: within check_b1's bar
+    (1e-5, labels equal)."""
+    before = blend.split_counts(frame.ptab.device)
     out = frame.blend(0.0)
+    after = blend.split_counts(frame.ptab.device)
     vis, _ = frame.blend_vis()
     torch.cuda.synchronize()
+    split = {k: after[k] - before[k] for k in after}
     equal = {k: bool(torch.equal(getattr(out, k), getattr(vis, k)))
              for k in ("rgb", "transmittance", "best_weight", "label")}
-    log({"check": "B1 at eps 0 equals B5 bit for bit", "frame": tag,
-         "equal": equal})
-    if not all(equal.values()):
+    errs = {k: float((getattr(out, k) - getattr(vis, k)).abs().max())
+            for k in ("rgb", "transmittance", "best_weight")}
+    log({"check": "B1 at eps 0 equals B5", "frame": tag, "split": split,
+         "equal": equal, "max_abs_err": errs})
+    if split["tiles"] == 0 and not all(equal.values()):
         raise AssertionError(f"B1 at eps 0 differs from B5: {equal}")
+    if max(errs.values()) > 1e-5 or not equal["label"]:
+        raise AssertionError(f"B1 (split {split}) at eps 0 differs from B5: "
+                             f"{errs}, labels equal {equal['label']}")
+
+
+def check_b1_split(frame: Frame, tag: str, walked_again: bool) -> float:
+    """B1 on a frame with tiles far longer than the rest, which it splits:
+    check_b1 (the one-block walk's plain version at eps 0 and at the
+    default, within 1e-5, labels equal) with the counter reporting tiles
+    split and, with ``walked_again``, segments the merge walked again (the
+    tile's stop inside a later segment); then B1 at the default equal bit
+    for bit to the split walk's plain version
+    (``blend._blend_tiles_fwd_split_plain``) with the launch's lengths."""
+    dev = frame.ptab.device
+    before = blend.split_counts(dev)
+    err = check_b1(frame, tag)
+    split = {k: v - before[k] for k, v in blend.split_counts(dev).items()}
+    seg_len, split_above, _ = blend.split_launch(
+        frame.binning.inst_gauss.shape[0], frame.num_tiles, CFG.tiles.chunk,
+        dev, False)
+    out = frame.blend()
+    ref = blend._blend_tiles_fwd_split_plain(
+        frame.ptab, frame.binning.inst_gauss, frame.binning.tile_bounds,
+        seg_len=seg_len, split_above=split_above,
+        **frame._blend_kw(RC.early_stop_eps))
+    torch.cuda.synchronize()
+    equal = {k: bool(torch.equal(getattr(out, k), getattr(ref, k)))
+             for k in blend.BlendOutput._fields}
+    log({"check": "B1 split vs plain", "frame": tag, "split": split,
+         "seg_len": seg_len, "split_above": split_above,
+         "equal_to_split_plain": equal})
+    if split["tiles"] == 0 or (walked_again and split["walked_again"] == 0):
+        raise AssertionError(f"B1 on {tag} split {split}")
+    if not all(equal.values()):
+        raise AssertionError(f"B1 on {tag} differs from the split walk's "
+                             f"plain version: {equal}")
+    return err
+
+
+def crowded_ball(device) -> Frame:
+    """A frame at the viewer cell's shapes (``benchmark/configs/m360.json``
+    and ``traffic/overview.json``): the 2.4M gaussians of its ball (radius
+    1, log-normal scales about 0.004 capped at 0.05) seen from radius 12 at
+    1237x822, 60 degrees: ~35 tiles of the 1,014 hold the stream, the
+    limb's never stop."""
+    rng = np.random.default_rng(23)
+    n = 2_400_000
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    means = d * rng.uniform(size=(n, 1)) ** (1.0 / 3.0)
+    log_scales = np.minimum(np.log(0.004) + 0.5 * rng.normal(size=(n, 3)),
+                            np.log(0.05))
+    quats = rng.normal(size=(n, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    sh = color_to_dc(rng.uniform(0.0, 1.0, size=(n, 1, 3)))
+    scene = scene_from_numpy(means, log_scales, quats,
+                             rng.uniform(-2.0, 4.0, size=n), sh,
+                             rng.integers(0, 16, size=n).astype(np.int32),
+                             device=device)
+    return Frame(scene, look_at_camera((0.0, -1.0, -12.0), (0, 0, 0),
+                                       width=1237, height=822))
 
 
 def check_b5(frame: Frame, tag: str) -> float:
@@ -1659,8 +1740,9 @@ def bench_phase(device, card, report: Path) -> tuple:
     ``report``'s, an exit code not 0, a dropped instance, a bench step image
     not equal to ``render``'s, or a kernel of a path not launched. Then B4
     and B5 against their plain versions, and B1 at eps 0 against B5, on the
-    visible vote's view 0, whose tiles are the longest the path gives them.
-    Returns the bench's and the vote's launches and B4's and B5's errors
+    visible vote's view 0, whose tiles are the longest the path gives them,
+    and B1 there against its plain versions (``check_b1_split``). Returns
+    the bench's and the vote's launches and B4's, B5's and B1's errors
     there."""
     problem = bench_twin.make_problem(bench_twin.parse_args([]))
     want = render(problem.scene, problem.cam, problem.cfg,
@@ -1716,7 +1798,8 @@ def bench_phase(device, card, report: Path) -> tuple:
          "counts": fr.instance_counts()})
     err_b5 = check_b5(fr, "vote view 0")
     check_b1_equals_b5(fr, "vote view 0")
-    return bench_launches, vote_launches, err_b4, err_b5
+    err_b1 = check_b1_split(fr, "vote view 0", walked_again=False)
+    return bench_launches, vote_launches, err_b4, err_b5, err_b1
 
 
 RENDER_SESSION = (EditState().toggle_visibility(3)
@@ -2708,18 +2791,23 @@ def perturbed_capacity_state(scene, device):
 
 def sharded_render_equal(scene, cam, mesh, want, device) -> dict:
     """``render_sharded`` with labels of ``scene`` over ``mesh`` against
-    ``render``'s ``want``: equal bit for bit, and its CUDA-event ms."""
+    ``render``'s ``want``: equal bit for bit (B1 cuts a shard's long tiles
+    by the whole frame's stream, as ``render`` cuts them), the tiles B1
+    split, and its CUDA-event ms."""
     camp = CameraParams.from_camera(cam, device)
     sharded = mesh_lib.shard_scene(scene, mesh)
+    before = blend.split_counts(device)
     ms, got = cuda_ms_once(lambda: render_sharded(
         sharded, camp, mesh, width=cam.width, height=cam.height, cfg=CFG,
         with_labels=True))
+    split = blend.split_counts(device)["tiles"] - before["tiles"]
     equal = {k: bool(torch.equal(got[k], want[k]))
              for k in ("image", "transmittance", "best_weight", "label_map")}
     if not all(equal.values()):
         raise AssertionError(f"sharded render over {mesh.dims} differs "
                              f"from render: {equal}")
-    return {"mesh": list(mesh.dims), "equal": equal, "ms": ms}
+    return {"mesh": list(mesh.dims), "equal": equal, "tiles_split": split,
+            "ms": ms}
 
 
 def single_step_reference(scene, cam, target, device) -> dict:
@@ -3173,8 +3261,8 @@ def main(argv=None) -> int:
 
     # B. the twins of bench.py and bench_vote.py at their defaults
     t0 = time.perf_counter()
-    bench_launches, vote_launches, err_b4_vote, err_b5_vote = bench_phase(
-        device, card, ROOFLINE_REPORT)
+    (bench_launches, vote_launches, err_b4_vote, err_b5_vote,
+     err_b1_vote) = bench_phase(device, card, ROOFLINE_REPORT)
     log({"phase": "B wall", "wall_s": time.perf_counter() - t0})
 
     # 2. bench frame: kernels against plain versions, counts, small render
@@ -3186,7 +3274,7 @@ def main(argv=None) -> int:
     err_b4 = max(err_b4_vote, check_b4(bench))
     log({"check": "B4 enum_keys vs plain", "frame": "bench",
          "keys_equal": True, "slots": bench.bb.total})
-    err_b1 = check_b1(bench, "bench")
+    err_b1 = max(err_b1_vote, check_b1(bench, "bench"))
     err_b2 = check_b2(bench, "bench")
     counts = bench.instance_counts()
     log({"bench_frame_counts": counts, "jax_binning_counts": BENCH_COUNTS})
@@ -3211,6 +3299,11 @@ def main(argv=None) -> int:
     err_b5 = max(err_b5, check_b5(thin, "thin splats"))
     err_b2 = max(err_b2, check_b2(thin, "thin splats"))
     del thin
+    crowded = crowded_ball(device)
+    log({"crowded ball tiles": crowded.tile_lengths()})
+    err_b1 = max(err_b1, check_b1_split(crowded, "crowded ball",
+                                        walked_again=True))
+    del crowded
 
     # 3. serving path: 2M gaussians through PLY, 8 views, with labels
     t0 = time.perf_counter()

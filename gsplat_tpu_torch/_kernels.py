@@ -65,7 +65,7 @@ SIGNATURES = {
                   [_P] * 12 + [_I, _I, _I, _F, _I] + [_I] * 4
                   + [_P, _P, _P]),
     "blend_fwd": ("gsplat_blend_fwd",
-                  [_P] * 3 + [_I] * 10 + [_F] * 3 + [_I] + [_P] * 5),
+                  [_P] * 3 + [_I] * 10 + [_F] * 3 + [_I] * 4 + [_P] * 9),
     "blend_bwd": ("gsplat_blend_bwd",
                   [_P] * 3 + [_I] * 10 + [_F] * 3 + [_P] * 4 + [_I]
                   + [_P] * 2),

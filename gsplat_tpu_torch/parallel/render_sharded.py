@@ -20,7 +20,8 @@ program in the JAX package):
    sort gives it the single-device sequence;
 3. each local shard bins and blends its lattice (kernels B4, B1; B2 and the
    fold backward) into its [ty_l * ts, tx_l * ts] block, the
-   tiles' pixels at their global positions;
+   tiles' pixels at their global positions; B1 cuts a long tile by the
+   whole frame's stream length, as ``render`` cuts it;
 4. every process gathers the D blocks and interleaves them into the image
    (:func:`interleave_tiles`), so the loss (SSIM's window crosses tiles)
    is computed whole and identical on every rank. The gather's backward
@@ -217,7 +218,13 @@ def exchanged_rows(scene: ShardedScene, cam: CameraParams, mesh: Mesh, *,
                    width: int, height: int, cfg: Config,
                    exchange: str = "a2a"):
     """Stages 1 and 2 of :func:`render_sharded`: each local shard's
-    received [m, 16] exchange rows, and the layout (Dy, Dx, tx_l, ty_l)."""
+    received [m, 16] exchange rows, the layout (Dy, Dx, tx_l, ty_l), and
+    the stream length of the whole frame: the bbox slots of every shard's
+    gaussians over the image's tile grid, the length of ``render``'s
+    stream, from which kernel B1 cuts its long tiles
+    (``blend.blend_tiles_fwd``), so that every shard cuts a tile as
+    ``render`` does. None where the projection records a gradient: B2
+    replays B1's walk there, and B1 cuts nothing."""
     if exchange not in ("a2a", "all_gather"):
         raise ValueError(f"unknown exchange {exchange!r}")
     if not isinstance(scene, ShardedScene) or scene.mesh != mesh:
@@ -227,13 +234,18 @@ def exchanged_rows(scene: ShardedScene, cam: CameraParams, mesh: Mesh, *,
     ts = rc.tile_size
     d = mesh.size
     dy, dx, tx_l, ty_l = grid_layout(width, height, ts, d)
+    tiles_x, tiles_y = tile_grid(width, height, ts)
     # 1. project and pack each local shard; the rows it sends each shard
-    pieces = []
+    pieces, slots = [], []
     for sc, dev in zip(scene, mesh.devices):
         with on_device(dev):
             camd = CameraParams(*(t.to(dev) for t in cam))
             proj = project(sc, camd, width, height, rc,
                            z_near=cfg.camera.z_near, z_far=cfg.camera.z_far)
+            if not proj.u.requires_grad:
+                slots.append(_tile_bbox(
+                    proj.u, proj.v, proj.ex, proj.ey, proj.valid, float(ts),
+                    tiles_x, tiles_y)[3].sum(dtype=torch.int64).to(mesh.home))
             compact = _pack_compact(proj, sc.labels)
             if exchange == "all_gather":
                 pieces.append([compact] * d)
@@ -241,8 +253,12 @@ def exchanged_rows(scene: ShardedScene, cam: CameraParams, mesh: Mesh, *,
                 pieces.append([compact[_overlap_mask(
                     proj, e // dx, e % dx, dy, dx, ty_l, tx_l, float(ts))]
                     for e in range(d)])
+    frame = torch.stack(slots).sum() if slots else None
+    if frame is not None and mesh.distributed:
+        dist.all_reduce(frame)
     # 2. the exchange
-    return _exchange(pieces, mesh), (dy, dx, tx_l, ty_l)
+    return (_exchange(pieces, mesh), (dy, dx, tx_l, ty_l),
+            None if frame is None else int(frame))
 
 
 def shard_binning(rows: torch.Tensor, shard: int, layout, cfg: Config):
@@ -295,9 +311,9 @@ def render_sharded(
     if background is None:
         background = cfg.raster.background
     bg = torch.as_tensor(background, dtype=torch.float32, device=home)
-    received, layout = exchanged_rows(scene, cam, mesh, width=width,
-                                      height=height, cfg=cfg,
-                                      exchange=exchange)
+    received, layout, frame = exchanged_rows(scene, cam, mesh, width=width,
+                                             height=height, cfg=cfg,
+                                             exchange=exchange)
     dy, dx, tx_l, ty_l = layout
     ts = cfg.raster.tile_size
     # 3. bin and blend each local shard's lattice
@@ -306,7 +322,7 @@ def render_sharded(
         with on_device(dev):
             ptab, binning, settings = shard_binning(rows, e, layout, cfg)
             outs.append(blend_scene_tiles(ptab, binning, settings,
-                                          with_labels))
+                                          with_labels, frame))
 
     # 4. every shard's block, interleaved into the image
     def assemble(blocks):

@@ -37,6 +37,7 @@ import json
 import statistics
 import sys
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -63,8 +64,11 @@ def _shape(d: int):
     return (2, d // 2) if d > 1 and d % 2 == 0 else (1, d)
 
 
-def _kernel_ms(rows, shard, layout, cfg: Config) -> dict:
-    """Graph-replayed ms of B4, B1 and B2 on one shard's received rows."""
+def _kernel_ms(rows, shard, layout, cfg: Config,
+               frame: Optional[int]) -> dict:
+    """Graph-replayed ms of B4, B1 and B2 on one shard's received rows, B1
+    cutting long tiles as ``render_sharded`` does, by the whole frame's
+    stream of ``frame`` instances."""
     from gsplat_tpu_torch.utils.profiling import graph_ms
 
     ptab, b, st = shard_binning(rows, shard, layout, cfg)
@@ -76,7 +80,7 @@ def _kernel_ms(rows, shard, layout, cfg: Config) -> dict:
                            tile_size=st.tile_size, lattice=lat)
     kw = st._asdict()
     fwd = blend.blend_tiles_fwd(ptab, b.inst_gauss, b.tile_bounds, **kw,
-                                with_labels=False)
+                                with_labels=False, frame_instances=frame)
     gen = torch.Generator(device=rows.device).manual_seed(11)
     drgb = torch.randn(fwd.rgb.shape, generator=gen, device=rows.device)
     dtrans = torch.randn(fwd.transmittance.shape, generator=gen,
@@ -87,7 +91,8 @@ def _kernel_ms(rows, shard, layout, cfg: Config) -> dict:
             tile_size=st.tile_size, db=32 - tiles.depth_shift(nt),
             lattice=lat)),
         "B1": graph_ms(lambda: blend.blend_tiles_fwd(
-            ptab, b.inst_gauss, b.tile_bounds, **kw, with_labels=True)),
+            ptab, b.inst_gauss, b.tile_bounds, **kw, with_labels=True,
+            frame_instances=frame)),
         "B2": graph_ms(lambda: blend.blend_tiles_bwd(
             ptab, b.inst_gauss, b.tile_bounds, fwd.rgb, fwd.transmittance,
             drgb, dtrans, **kw), launches=5, reps=5),
@@ -102,9 +107,8 @@ def scaling_row(scene, cam, d: int, device: torch.device,
     sharded = mesh_lib.shard_scene(scene, mesh)
     camp = CameraParams.from_camera(cam, device)
     with torch.no_grad():
-        received, layout = exchanged_rows(sharded, camp, mesh,
-                                          width=cam.width, height=cam.height,
-                                          cfg=cfg)
+        received, layout, frame = exchanged_rows(
+            sharded, camp, mesh, width=cam.width, height=cam.height, cfg=cfg)
         inst, batches, times = [], [], []
         for e, rows in zip(mesh.local, received):
             _, b, st = shard_binning(rows, e, layout, cfg)
@@ -113,7 +117,7 @@ def scaling_row(scene, cam, d: int, device: torch.device,
             batches.append(int(torch.clamp_min(
                 -(-n_t // cfg.tiles.chunk), 1).sum()))
             if timed:
-                times.append(_kernel_ms(rows, e, layout, cfg))
+                times.append(_kernel_ms(rows, e, layout, cfg, frame))
     recv = [int(r.shape[0]) for r in received]
     row = {"shards": d, "mesh": list(mesh.dims), "lattice": list(layout[:2]),
            "tiles": layout[2] * layout[3], "inst_max": max(inst),

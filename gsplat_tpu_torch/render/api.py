@@ -269,7 +269,11 @@ class BlendSceneTiles(torch.autograd.Function):
 
     Forward: kernel B1 (``blend.blend_tiles_fwd``), returning (rgb,
     transmittance) and, with labels, (best_weight, label), which are not
-    differentiable, as the JAX VJP ignores the label rows. Backward: kernel
+    differentiable, as the JAX VJP ignores the label rows. Where the table
+    records a gradient (``ctx.needs_input_grad[0]``, which is
+    ``ptab.requires_grad``) B1 walks each tile in one block, the walk B2
+    replays bit for bit; elsewhere (the viewer, ``render``, the sharded
+    render) it splits long tiles (``blend.blend_tiles_fwd``). Backward: kernel
     B2 (``blend.blend_tiles_bwd``, span ``gsplat.blend_bwd``) then
     :func:`fold_instance_rows` (span ``gsplat.fold``); on the card autograd
     runs this on its device thread, where the spans open. Grads
@@ -278,10 +282,12 @@ class BlendSceneTiles(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ptab, inst_gauss, tile_bounds, je_sorted, enum_start,
-                enum_cnt, settings: BlendSettings, with_labels: bool):
+                enum_cnt, settings: BlendSettings, with_labels: bool,
+                frame_instances: Optional[int] = None):
         out = blend.blend_tiles_fwd(ptab, inst_gauss, tile_bounds,
                                     **settings._asdict(),
-                                    with_labels=with_labels)
+                                    with_labels=with_labels,
+                                    frame_instances=frame_instances)
         ctx.settings = settings
         ctx.save_for_backward(ptab, inst_gauss, tile_bounds, je_sorted,
                               enum_start, enum_cnt, out.rgb,
@@ -305,18 +311,21 @@ class BlendSceneTiles(torch.autograd.Function):
                     g_trans.contiguous(), **ctx.settings._asdict())
             dptab = fold_instance_rows(drows, je_sorted, enum_start,
                                        enum_cnt)
-        return dptab, None, None, None, None, None, None, None
+        return dptab, None, None, None, None, None, None, None, None
 
 
 def blend_scene_tiles(ptab: torch.Tensor, binning: TileBinning,
-                      settings: BlendSettings, with_labels: bool = False
+                      settings: BlendSettings, with_labels: bool = False,
+                      frame_instances: Optional[int] = None
                       ) -> blend.BlendOutput:
     """Differentiable blend of a binned frame (counterpart of
-    ``blend_scene_windows``); see :class:`BlendSceneTiles`."""
+    ``blend_scene_windows``); see :class:`BlendSceneTiles`.
+    ``frame_instances``: the stream length of the whole frame whose tiles
+    ``binning`` holds, where it is a shard's (``blend.blend_tiles_fwd``)."""
     outs = BlendSceneTiles.apply(ptab, binning.inst_gauss,
                                  binning.tile_bounds, binning.je_sorted,
                                  binning.enum_start, binning.enum_cnt,
-                                 settings, with_labels)
+                                 settings, with_labels, frame_instances)
     if with_labels:
         return blend.BlendOutput(*outs)
     return blend.BlendOutput(outs[0], outs[1], None, None)

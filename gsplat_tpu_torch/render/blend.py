@@ -160,10 +160,10 @@ def _blend_tiles_fwd_plain(ptab, inst_gauss, tile_bounds, *, tiles_x,
                            tiles_y, tile_size, width, height, chunk,
                            alpha_min, alpha_max, early_eps, with_labels,
                            lattice: Lattice = FULL) -> BlendOutput:
-    """Plain PyTorch version of kernel B1: one step per stream position,
-    vectorized over tiles and pixels, in the kernel's operation order (each
-    tile composites its l-th instance at step l), so on the card the two
-    agree bit for bit wherever exp does."""
+    """Plain PyTorch version of kernel B1's one-block walk: one step per
+    stream position, vectorized over tiles and pixels, in the kernel's
+    operation order (each tile composites its l-th instance at step l), so
+    on the card the two agree bit for bit wherever exp does."""
     out, _ = _blend_plain(ptab, inst_gauss, tile_bounds, tiles_x=tiles_x,
                           tiles_y=tiles_y, tile_size=tile_size, width=width,
                           height=height, chunk=chunk, alpha_min=alpha_min,
@@ -173,38 +173,53 @@ def _blend_tiles_fwd_plain(ptab, inst_gauss, tile_bounds, *, tiles_x,
     return out
 
 
-def _blend_plain(ptab, inst_gauss, tile_bounds, *, tiles_x, tiles_y,
-                 tile_size, width, height, chunk, alpha_min, alpha_max,
-                 early_eps, with_labels, inst_max, lattice: Lattice = FULL):
-    """The forward recurrence of B1 and B5. With ``inst_max`` it also
-    returns each instance's max blend weight over all pixels of its tile
-    (those past the image edge included), [B] f32, 0 past the last tile."""
+class _Composite(NamedTuple):
+    """The per-pixel state of the plain walks, [V, ...] tile rows."""
+    trans: torch.Tensor    # [V, P] f32
+    rgb: torch.Tensor      # [V, 3, P] f32
+    best_w: torch.Tensor   # [V, P] f32
+    label: torch.Tensor    # [V, P] i32
+
+
+def _fresh_composite(rows: int, npix: int, device) -> _Composite:
+    return _Composite(
+        torch.ones(rows, npix, device=device),
+        torch.zeros(rows, 3, npix, device=device),
+        torch.zeros(rows, npix, device=device),
+        torch.full((rows, npix), UNLABELED, dtype=torch.int32,
+                   device=device))
+
+
+def _walk_plain(ptab, inst_gauss, start, cnt, x0f, y0f, state: _Composite,
+                *, tile_size, chunk, alpha_min, alpha_max, early_eps,
+                with_labels, inst_max):
+    """B1's walk of V ranges ``[start, start + cnt)`` of the stream ([V]
+    i64), each over the pixels of a tile with origin (``x0f``, ``y0f``),
+    from ``state``: one step per stream position, a batch of ``chunk`` run
+    only while its range's max T is at least ``early_eps``. Returns the
+    state, the instances each walk took before it stopped ([V] i64, ``cnt``
+    where it reached its range's end), and with ``inst_max`` each instance's
+    max blend weight, [B] f32 (0 for those not walked)."""
     dev = ptab.device
-    num_tiles = tiles_x * tiles_y
-    npix = tile_size * tile_size
-    start = tile_bounds[:-1].long()
-    cnt = (tile_bounds[1:] - tile_bounds[:-1]).long()
-    steps = int(cnt.max()) if num_tiles else 0
-    pid = torch.arange(npix, device=dev)
+    trans, rgb, best_w, label = state
+    steps = int(cnt.max()) if cnt.numel() else 0
+    pid = torch.arange(tile_size * tile_size, device=dev)
     px = ((pid % tile_size).to(torch.float32) + 0.5)[None, :]
     py = ((pid // tile_size).to(torch.float32) + 0.5)[None, :]
-    x0f, y0f = _tile_origins(tiles_x, tiles_y, tile_size, lattice, dev)
-    trans = torch.ones(num_tiles, npix, device=dev)
-    rgb = torch.zeros(num_tiles, 3, npix, device=dev)
-    best_w = torch.zeros(num_tiles, npix, device=dev)
-    label = torch.full((num_tiles, npix), UNLABELED, dtype=torch.int32,
-                       device=dev)
-    alive = torch.ones(num_tiles, dtype=torch.bool, device=dev)
+    alive = torch.ones(cnt.shape[0], dtype=torch.bool, device=dev)
+    walked = cnt.clone()
     last = max(inst_gauss.shape[0] - 1, 0)
     inst_w = (torch.zeros(inst_gauss.shape[0], device=dev) if inst_max
               else None)
     for step in range(steps):
         if step % chunk == 0:
-            alive = alive & (trans.amax(dim=1) >= early_eps)
+            stop = alive & ~(trans.amax(dim=1) >= early_eps) & (step < cnt)
+            walked = torch.where(stop, step, walked)
+            alive = alive & ~stop
         run = alive & (step < cnt)
         live = run[:, None]
         g = inst_gauss[torch.clamp(start + step, max=last)].long()
-        row = ptab[g]                                          # [T, 16]
+        row = ptab[g]                                          # [V, 16]
         mx = (row[:, P_MX] - x0f)[:, None]
         my = (row[:, P_MY] - y0f)[:, None]
         dx = px - mx
@@ -225,35 +240,273 @@ def _blend_plain(ptab, inst_gauss, tile_bounds, *, tiles_x, tiles_y,
         if inst_max:
             inst_w[(start + step)[run]] = w.amax(dim=1)[run]
         trans = trans * (1.0 - alpha)
+    return _Composite(trans, rgb, best_w, label), walked, inst_w
+
+
+def _composite_image(c: _Composite, *, tiles_x, tiles_y, tile_size, width,
+                     height, with_labels) -> BlendOutput:
     to_img = lambda x: _tiles_to_image(x, tiles_x, tiles_y, tile_size,
                                        width, height)
     return BlendOutput(
-        rgb=to_img(rgb).contiguous(), transmittance=to_img(trans[:, None])[..., 0],
-        best_weight=to_img(best_w[:, None])[..., 0] if with_labels else None,
-        label=to_img(label[:, None])[..., 0] if with_labels else None), inst_w
+        rgb=to_img(c.rgb).contiguous(),
+        transmittance=to_img(c.trans[:, None])[..., 0],
+        best_weight=to_img(c.best_w[:, None])[..., 0] if with_labels else None,
+        label=to_img(c.label[:, None])[..., 0] if with_labels else None)
+
+
+def _blend_plain(ptab, inst_gauss, tile_bounds, *, tiles_x, tiles_y,
+                 tile_size, width, height, chunk, alpha_min, alpha_max,
+                 early_eps, with_labels, inst_max, lattice: Lattice = FULL):
+    """The forward recurrence of B1 and B5, one walk a tile. With
+    ``inst_max`` it also returns each instance's max blend weight over all
+    pixels of its tile (those past the image edge included), [B] f32, 0
+    past the last tile."""
+    num_tiles = tiles_x * tiles_y
+    x0f, y0f = _tile_origins(tiles_x, tiles_y, tile_size, lattice,
+                             ptab.device)
+    state, _, inst_w = _walk_plain(
+        ptab, inst_gauss, tile_bounds[:-1].long(),
+        (tile_bounds[1:] - tile_bounds[:-1]).long(), x0f, y0f,
+        _fresh_composite(num_tiles, tile_size * tile_size, ptab.device),
+        tile_size=tile_size, chunk=chunk, alpha_min=alpha_min,
+        alpha_max=alpha_max, early_eps=early_eps, with_labels=with_labels,
+        inst_max=inst_max)
+    return _composite_image(state, tiles_x=tiles_x, tiles_y=tiles_y,
+                            tile_size=tile_size, width=width, height=height,
+                            with_labels=with_labels), inst_w
+
+
+# The split of B1's long tiles (csrc/blend_fwd.cu): a segment is never
+# shorter than this many instances. A one-block walk this short takes about
+# a tenth of a millisecond on the card, less than a frame gains from
+# spreading it; the card tests' frames (tiles of at most ~650 instances)
+# stay one block a tile.
+SPLIT_MIN = 1024
+# A tile is split when it is longer than SPLIT_ABOVE even shares of the
+# stream over the card's resident blocks, into segments of an even share
+# over SPLIT_PER_BLOCK. A split tile walks the segments past its stop and
+# walks one again, so it pays only where one tile's walk is far longer than
+# the others': the limb tiles of a dense scene seen from afar (B1 10-13 ->
+# ~2 ms on m360-overview frames). On frames whose tiles are within about
+# twice an even share (chip_smoke's 2M frame, an m360 rig view) any split
+# made B1 slower, by up to 1.8x (PERF.md).
+SPLIT_ABOVE = 2
+SPLIT_PER_BLOCK = 4
+
+
+def split_lengths(num_instances: int, chunk: int, resident_blocks: int
+                  ) -> tuple[int, int]:
+    """(split_above, seg_len) of B1's split walk: with S the even share of
+    the stream's ``num_instances`` over the card's ``resident_blocks``, a
+    tile longer than ``split_above`` = SPLIT_ABOVE S is cut into segments
+    of ``seg_len`` = S / SPLIT_PER_BLOCK instances, each at least
+    :data:`SPLIT_MIN` and rounded up to a multiple of ``chunk``, so that
+    every cut is a batch boundary of the one-block walk."""
+    share = -(-num_instances // max(resident_blocks, 1))
+    up = lambda n: -(-max(n, SPLIT_MIN) // chunk) * chunk
+    seg_len = up(-(-share // SPLIT_PER_BLOCK))
+    return max(up(SPLIT_ABOVE * share), seg_len), seg_len
+
+
+def _split_plan(tile_bounds: torch.Tensor, seg_len: int, split_above: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(tile, segment) [S] i64 of each block of B1's split launch that has
+    a segment to walk, in the kernel's order: block t takes the first
+    segment, or the whole range, of tile t; then come the segments after
+    the first of each tile longer than ``split_above``, tile by tile.
+    Segment k of such a tile is its instances [start + k seg_len, start +
+    (k + 1) seg_len), cut at the tile's end."""
+    cnt = (tile_bounds[1:] - tile_bounds[:-1]).long()
+    num_tiles = cnt.shape[0]
+    more = torch.where(cnt > split_above, (cnt - 1) // seg_len, 0)
+    tid = torch.arange(num_tiles, device=cnt.device)
+    later = torch.repeat_interleave(tid, more)
+    first = torch.repeat_interleave(torch.cumsum(more, 0) - more, more)
+    seg = torch.arange(later.shape[0], device=cnt.device) - first + 1
+    return torch.cat([tid, later]), torch.cat([torch.zeros_like(tid), seg])
+
+
+def _blend_tiles_fwd_split_plain(ptab, inst_gauss, tile_bounds, *, seg_len,
+                                 split_above, tiles_x, tiles_y, tile_size,
+                                 width, height, chunk, alpha_min, alpha_max,
+                                 early_eps, with_labels,
+                                 lattice: Lattice = FULL) -> BlendOutput:
+    """Plain PyTorch version of kernel B1's split walk (``seg_len`` > 0, a
+    multiple of ``chunk``, of the tiles longer than ``split_above`` >=
+    ``seg_len``), in the kernel's order: every segment of
+    :func:`_split_plan` walked from T = 1 with its own early stop, then
+    each tile's partials merged front to back; at each segment boundary the
+    one-block walk's stop test on the composite so far; C += T C_k, T *= T_k
+    and the best weight T best_k where it beats the best so far, when
+    segment k ran to its end and the tile max of the product is at least
+    ``early_eps``; else segment k walked again from the composite so far.
+    A tile no longer than ``split_above`` is one walk, bit for bit
+    :func:`_blend_tiles_fwd_plain`'s. (The kernel's later segments also quit
+    once the first has published the tile's stop; the merge then never
+    reads them, so the result is the same.)"""
+    dev = ptab.device
+    npix = tile_size * tile_size
+    start = tile_bounds[:-1].long()
+    cnt = (tile_bounds[1:] - tile_bounds[:-1]).long()
+    x0f, y0f = _tile_origins(tiles_x, tiles_y, tile_size, lattice, dev)
+    tile, seg = _split_plan(tile_bounds, seg_len, split_above)
+    nseg = torch.where(cnt > split_above, (cnt - 1) // seg_len + 1, 1)
+    # block of segment k >= 1 of tile t: T + P(t) + k - 1; of segment 0: t
+    later_first = cnt.shape[0] + torch.cumsum(nseg - 1, 0) - (nseg - 1)
+    seg_start = start[tile] + seg * seg_len
+    seg_cnt = torch.where(nseg[tile] == 1, cnt[tile],
+                          torch.clamp(cnt[tile] - seg * seg_len,
+                                      max=seg_len))
+    wkw = dict(tile_size=tile_size, chunk=chunk, alpha_min=alpha_min,
+               alpha_max=alpha_max, early_eps=early_eps,
+               with_labels=with_labels, inst_max=False)
+    parts, walked, _ = _walk_plain(
+        ptab, inst_gauss, seg_start, seg_cnt, x0f[tile], y0f[tile],
+        _fresh_composite(tile.shape[0], npix, dev), **wkw)
+    ran = walked == seg_cnt
+    tid = torch.arange(cnt.shape[0], device=dev)
+    state = _Composite(*(x[tid] for x in parts))
+    stopped = torch.zeros(cnt.shape[0], dtype=torch.bool, device=dev)
+    for k in range(1, int(nseg.max()) if cnt.numel() else 1):
+        go = (nseg > k) & ~stopped
+        stopped = stopped | (go & ~(state.trans.amax(dim=1) >= early_eps))
+        go = go & ~stopped
+        slot = torch.where(go, later_first + k - 1, 0)
+        t_k, c_k, bw_k, lab_k = (x[slot] for x in parts)
+        trans = state.trans * t_k
+        rgb = state.rgb + state.trans[:, None, :] * c_k
+        bw = state.trans * bw_k
+        better = bw > state.best_w
+        cand = _Composite(trans, rgb, torch.where(better, bw, state.best_w),
+                          torch.where(better, lab_k, state.label))
+        take = go & ran[slot] & (trans.amax(dim=1) >= early_eps)
+        state = _Composite(*(torch.where(
+            take.view(-1, *[1] * (new.dim() - 1)), new, old)
+            for new, old in zip(cand, state)))
+        again = torch.nonzero(go & ~take)[:, 0]
+        if again.numel():
+            b0 = start[again] + k * seg_len
+            n = torch.where(nseg[again] == k + 1, cnt[again] - k * seg_len,
+                            seg_len)
+            redone, _, _ = _walk_plain(
+                ptab, inst_gauss, b0, n, x0f[again], y0f[again],
+                _Composite(*(x[again] for x in state)), **wkw)
+            state = _Composite(*(x.index_copy(0, again, y)
+                                 for x, y in zip(state, redone)))
+    return _composite_image(state, tiles_x=tiles_x, tiles_y=tiles_y,
+                            tile_size=tile_size, width=width, height=height,
+                            with_labels=with_labels)
+
+
+# per device: the resident blocks of B1's split kernel (SMs x blocks an SM)
+_RESIDENT_BLOCKS: dict = {}
+# the split's words of a tile and a segment's planes (csrc/blend_fwd.cu
+# kTileWords, kPartPlanes)
+SPLIT_TILE_WORDS = 3
+SPLIT_PART_PLANES = 5
+
+
+def _resident_blocks(dev: torch.device) -> int:
+    if dev not in _RESIDENT_BLOCKS:
+        _RESIDENT_BLOCKS[dev] = (
+            torch.cuda.get_device_properties(dev).multi_processor_count
+            * _kernels.occupancy("blend_fwd")["blocks_per_sm"])
+    return _RESIDENT_BLOCKS[dev]
+
+
+def _split_scratch(dev: torch.device, num_tiles: int, slots: int,
+                   npix: int) -> list:
+    """B1's scratch on ``dev`` for a split launch of ``num_tiles`` tiles
+    and ``slots`` blocks of ``npix`` pixels, kept between calls, each buffer
+    grown (by a quarter more than asked) when a call needs more: the
+    per-tile words, zero between launches (the merging block resets its
+    tile's; a grown buffer starts at zero), the segments' f32 planes, and
+    their i32 labels and ends. A CUDA graph holds the buffers it captured:
+    replay it only while no larger call has grown them."""
+    need = (SPLIT_TILE_WORDS * num_tiles, slots * SPLIT_PART_PLANES * npix,
+            slots * (npix + 1))
+    have = blend_tiles_fwd.scratch.setdefault(dev, [None] * 3)
+    made = (lambda n: torch.zeros(n, dtype=torch.int32, device=dev),
+            lambda n: torch.empty(n, device=dev),
+            lambda n: torch.empty(n, dtype=torch.int32, device=dev))
+    for i, (n, make) in enumerate(zip(need, made)):
+        if have[i] is None or have[i].numel() < n:
+            have[i] = make(n + n // 4)
+    return list(have)
+
+
+def _split_stats(dev: torch.device) -> torch.Tensor:
+    stats = blend_tiles_fwd.splits
+    if dev not in stats:
+        stats[dev] = torch.zeros(3, dtype=torch.int64, device=dev)
+    return stats[dev]
+
+
+def split_counts(device) -> dict:
+    """Tiles that B1 split, the segments they ran in and the segments the
+    merge walked again, summed over every launch on ``device`` so far.
+    Reads the card: call it after a frame, never on its path."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {"tiles": 0, "segments": 0, "walked_again": 0}
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    tiles, segments, again = _split_stats(dev).tolist()
+    return {"tiles": tiles, "segments": segments, "walked_again": again}
+
+
+def split_launch(total: int, num_tiles: int, chunk: int,
+                 dev: torch.device, replayed: bool,
+                 frame_instances: Optional[int] = None
+                 ) -> tuple[int, int, int]:
+    """(seg_len, split_above, extra) of B1's launch on the card over a
+    stream of ``total`` instances, the tiles of a frame whose whole stream
+    holds ``frame_instances`` (by default ``total``): (0, 0, 0), one block a
+    tile, where the walk is ``replayed`` by B2 or no tile can be longer
+    than the ``split_above`` that :func:`split_lengths` gives the frame;
+    else the lengths and the blocks after the first segments (the grid is
+    ``num_tiles + extra``)."""
+    if replayed or not num_tiles:
+        return 0, 0, 0
+    split_above, seg_len = split_lengths(
+        total if frame_instances is None else frame_instances, chunk,
+        _resident_blocks(dev))
+    if total <= split_above:
+        return 0, 0, 0
+    return seg_len, split_above, -(-total // seg_len)
 
 
 def blend_tiles_fwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
                     tile_bounds: torch.Tensor, *, tiles_x: int, tiles_y: int,
                     tile_size: int, width: int, height: int, chunk: int,
                     alpha_min: float, alpha_max: float, early_eps: float,
-                    with_labels: bool, lattice: Lattice = FULL
-                    ) -> BlendOutput:
+                    with_labels: bool, lattice: Lattice = FULL,
+                    frame_instances: Optional[int] = None) -> BlendOutput:
     """Kernel B1 wrapper: composite every tile's range
     ``inst_gauss[tile_bounds[t]:tile_bounds[t+1]]`` of the depth-sorted
     stream, reading parameters from the [N, 16] table ``ptab``; local tile
     t of ``lattice`` (module docstring).
 
     Replaces ``gsplat_tpu/render/blend_pallas.py::_fwd_win_kernel``. On the
-    card it launches ``csrc/blend_fwd.cu``: one 256-thread block per tile
-    (the early stop needs the whole tile's T), walking the tile's range in
-    batches of ``chunk`` instances, each staged in sub-batches of 64; a warp
-    passes over an instance that misses its 32x4 strip, and a pixel tests q
-    before the exp (``csrc/blend_cull.cuh``: conservative with a stated
-    margin, so T, RGB, the best weight and the label are those of the
-    unculled walk, which B2 replays bit for bit). What still bounds it on
-    the card: one block a tile, so the busiest tile sets the time. CPU
-    tensors take the plain version."""
+    card it launches ``csrc/blend_fwd.cu`` once: 256-thread blocks that
+    walk a tile's range in batches of ``chunk`` instances, each staged in
+    sub-batches of 64; a warp passes over an instance that misses its 32x4
+    strip, and a pixel tests q before the exp (``csrc/blend_cull.cuh``:
+    conservative with a stated margin, so T, RGB, the best weight and the
+    label are those of the unculled walk). Where ``ptab`` records a
+    gradient, kernel B2 will replay the walk's T and stop decisions bit for
+    bit, so each tile is one block's walk. Elsewhere a tile longer than
+    the ``split_above`` of :func:`split_lengths` (twice the stream's even
+    share over the card's resident blocks) is cut on batch boundaries into
+    segments that blocks of the same launch walk, and its last block to
+    finish merges them front to back with the one-block walk's early stop
+    (:func:`_blend_tiles_fwd_split_plain`; only the merge's products are
+    associated differently); a shorter tile is still one block's walk, bit
+    for bit. The lengths come from the stream of the whole frame whose
+    tiles the launch walks, ``frame_instances`` instances, by default this
+    stream's: a shard of the sharded render passes its frame's, so that
+    each tile is cut as ``render`` cuts it. :func:`split_counts` reads what
+    was split. CPU tensors take the one-block walk's plain version."""
     _check_stream("blend_tiles_fwd", ptab, inst_gauss, tile_bounds,
                   tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size,
                   width=width, height=height, chunk=chunk)
@@ -272,10 +525,20 @@ def blend_tiles_fwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
     best_w = torch.empty(height, width, device=dev) if with_labels else None
     label = (torch.empty(height, width, dtype=torch.int32, device=dev)
              if with_labels else None)
+    seg_len, split_above, extra = split_launch(
+        inst_gauss.shape[0], num_tiles, chunk, dev, ptab.requires_grad,
+        frame_instances)
+    scratch = [None] * 4
+    if seg_len:
+        scratch = _split_scratch(dev, num_tiles, extra + num_tiles,
+                                 tile_size * tile_size)
+        scratch.append(_split_stats(dev))
     fn = _kernels.function("blend_fwd")
     err = fn(ptab.data_ptr(), inst_gauss.data_ptr(), tile_bounds.data_ptr(),
              num_tiles, tiles_x, tile_size, width, height, chunk, *lattice,
-             alpha_min, alpha_max, early_eps, int(with_labels),
+             alpha_min, alpha_max, early_eps, int(with_labels), seg_len,
+             split_above, extra, *(t.data_ptr() if t is not None else None
+                      for t in scratch),
              rgb.data_ptr(), trans.data_ptr(),
              best_w.data_ptr() if with_labels else None,
              label.data_ptr() if with_labels else None, _kernels.stream(dev))
@@ -285,6 +548,10 @@ def blend_tiles_fwd(ptab: torch.Tensor, inst_gauss: torch.Tensor,
 
 
 blend_tiles_fwd.launches = 0
+# per device: the split's scratch (_split_scratch) and its counter of tiles
+# split, segments and segments walked again (split_counts)
+blend_tiles_fwd.scratch = {}
+blend_tiles_fwd.splits = {}
 
 
 def _blend_tiles_vis_plain(ptab, inst_gauss, tile_bounds, *, tiles_x,

@@ -14,10 +14,14 @@ measurement and writes them all to ``--out`` (default
   on the card with its plain mirror (``render.blend._cull_rect_skip``):
   instances a 16x16 sub-tile keeps (B5's blocks), and (instance, warp
   strip) pairs for B5's 16x2 strips and B2's 32x4 ones;
+- ``split``: the tiles B1 splits on this frame, their segments and the
+  segments its merge walks again (``render.blend.split_counts`` over one
+  call), and its segment length;
 - ``blocks``: per block of B1, B5 and B2, the global timer at entry and
   exit, from builds of ``csrc/blend_fwd.cu``, ``csrc/blend_vis.cu`` and
   ``csrc/blend_bwd.cu`` with those two reads added: durations, the blocks
-  that start after the first wave, and the span;
+  that start after the first wave, and the span (B1's grid holds its
+  segment blocks);
 - ``variants``: B1 and B2 built with the row-major lane map and without
   their register cap, each held against the committed build (B1 bit for
   bit) and timed in turns with it (CUDA events, median of 10);
@@ -97,7 +101,11 @@ PROBE_EXIT = ("  if (threadIdx.x == 0) {\n"
               "    g_probe[3 * blockIdx.x + 2] = probe_sm();\n"
               "  }\n")
 LANE = "  const int lane = threadIdx.x & 31;\n"
-EXITS = {"blend_fwd": "  // the stores",
+# the line after which a kernel's timer starts, and the one before which it
+# stops (B1's blocks leave from its body: its kernel wraps the body)
+ENTRIES = {"blend_fwd": "    blend_fwd_kernel(const FwdArgs a) {\n",
+           "blend_vis": LANE, "blend_bwd": LANE}
+EXITS = {"blend_fwd": "  // the block's end",
          "blend_vis": "  if (!on) return;",
          "blend_bwd": "  // rows of the batches early stop skipped"}
 # build variants of B1 and B2: (tag, text in the source, replacement)
@@ -280,7 +288,7 @@ def block_times(fr: _Frame, name: str, call, blocks: int) -> dict:
     text = (_kernels.CSRC / f"{name}.cu").read_text()
     text = _edit(text, "#include <cuda_runtime.h>\n",
                  "#include <cuda_runtime.h>\n" + PROBE_DECLS)
-    text = _edit(text, LANE, LANE + PROBE_ENTRY)
+    text = _edit(text, ENTRIES[name], ENTRIES[name] + PROBE_ENTRY)
     text = _edit(text, EXITS[name], PROBE_EXIT + EXITS[name])
     so, fn, info = _load(f"{name}_probe", name, text)
     with _Swap(name, fn):
@@ -489,8 +497,17 @@ def main(argv=None) -> int:
               "tiles": _summary(b[1:] - b[:-1]),
               "skip": skip_counts(fr)}
     nsub = math.ceil(fr.kw["tile_size"] / 16) ** 2
+    seg_len, split_above, extra = blend.split_launch(
+        fr.binning.inst_gauss.shape[0], fr.tx * fr.ty, fr.kw["chunk"], device,
+        False)
+    before = blend.split_counts(device)
+    fr.fwd()
+    after = blend.split_counts(device)
+    report["split"] = {"seg_len": seg_len, "split_above": split_above,
+                       "extra_blocks": extra,
+                       **{k: after[k] - before[k] for k in after}}
     report["blocks"] = [
-        block_times(fr, "blend_fwd", fr.fwd, fr.tx * fr.ty),
+        block_times(fr, "blend_fwd", fr.fwd, fr.tx * fr.ty + extra),
         block_times(fr, "blend_vis", fr.vis, fr.tx * fr.ty * nsub),
         block_times(fr, "blend_bwd", fr.bwd, fr.tx * fr.ty)]
     report["variants"] = (blend_variants(fr, "blend_fwd")

@@ -28,11 +28,13 @@ from hypothesis import strategies as st
 
 from gsplat_tpu_torch import _kernels
 from gsplat_tpu_torch.cluster import kmeans, region_growing
-from gsplat_tpu_torch.config import UNLABELED
+from gsplat_tpu_torch.config import DEFAULT, UNLABELED
 from gsplat_tpu_torch.interact import viewer
 from gsplat_tpu_torch.io import cameras, png, synthetic
 from gsplat_tpu_torch.label import vote
 from gsplat_tpu_torch.models import trainer
+from gsplat_tpu_torch.parallel import mesh as mesh_lib
+from gsplat_tpu_torch.parallel import render_sharded
 from gsplat_tpu_torch.render import api, blend, projection, tiles
 
 torch.set_num_threads(2)
@@ -659,6 +661,138 @@ def test_blend_kernel_at_eps_0_equals_vis_kernel(card, frame, tile_size):
     assert torch.equal(bare.rgb, fwd.rgb)
     assert torch.equal(bare.transmittance, fwd.transmittance)
     assert (fwd.label != UNLABELED).any()
+
+
+def _crowded_scene(device):
+    scene = synthetic.random_scene(300_000, seed=3, extent=0.15,
+                                   scale_range=(0.002, 0.006),
+                                   num_labels=16, device=device)
+    return scene, cameras.look_at_camera((0, 0, -3.0), (0, 0, 0), width=800,
+                                         height=608)
+
+
+def _crowded_frame(device, tile_size):
+    """A cube of 300,000 small gaussians seen from 3 units: at 32-px tiles
+    its 428k instances fill 9 tiles, the longest 94k (32k at 16 px), the
+    edge tiles only in part, so their walk never stops. Far more than an
+    even share of the stream over the card's blocks: B1 splits them."""
+    scene, cam = _crowded_scene(device)
+    proj = projection.project(
+        scene, projection.CameraParams.from_camera(cam, device), cam.width,
+        cam.height)
+    tx, ty = projection.tile_grid(cam.width, cam.height, tile_size)
+    b = tiles.bin_tiles(proj, tiles_x=tx, tiles_y=ty, tile_size=tile_size)
+    kw = dict(tiles_x=tx, tiles_y=ty, tile_size=tile_size, width=cam.width,
+              height=cam.height, chunk=64, alpha_min=1 / 255,
+              alpha_max=0.999)
+    return api.pack_table(proj, scene.labels), b, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [0.0, 1e-5])
+@pytest.mark.parametrize("tile_size", [32, 16])
+def test_blend_kernel_splits_crowded_tiles(card, eps, tile_size):
+    """B1 on tiles far longer than an even share of the stream: it splits
+    them (the counter says so) and stays within _check_fwd's bar of the
+    one-block walk's plain version (only the merge's products associate
+    differently); and it equals the split walk's plain version, with the
+    lengths the launch took, bit for bit (the same operations in the same
+    order, as the one-block walk equals its own)."""
+    ptab, b, kw = _crowded_frame(card, tile_size)
+    counts = b.tile_bounds[1:] - b.tile_bounds[:-1]
+    assert int(counts.max()) > (50_000 if tile_size == 32 else 30_000)
+    before = blend.split_counts(card)
+    _check_fwd(ptab, b, **kw, early_eps=eps, with_labels=True)
+    after = blend.split_counts(card)
+    assert after["tiles"] > before["tiles"]
+    assert (after["segments"] - before["segments"]
+            > 2 * (after["tiles"] - before["tiles"]))
+    seg_len, split_above, _ = blend.split_launch(
+        b.inst_gauss.shape[0], kw["tiles_x"] * kw["tiles_y"], kw["chunk"],
+        card, False)
+    assert seg_len > 0
+    out = blend.blend_tiles_fwd(ptab, b.inst_gauss, b.tile_bounds, **kw,
+                                early_eps=eps, with_labels=True)
+    ref = blend._blend_tiles_fwd_split_plain(
+        ptab, b.inst_gauss, b.tile_bounds, seg_len=seg_len,
+        split_above=split_above, **kw, early_eps=eps, with_labels=True)
+    torch.cuda.synchronize()
+    for k in blend.BlendOutput._fields:
+        assert torch.equal(getattr(out, k), getattr(ref, k)), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [2, 4])
+def test_render_sharded_splits_tiles_as_render(card, d):
+    """The sharded render of the crowded frame over D logical shards on the
+    card: B1 splits the long tiles in the shards too, cutting them by the
+    whole frame's stream, so the render equals ``render``'s bit for bit."""
+    scene, cam = _crowded_scene(card)
+    before = blend.split_counts(card)
+    want = api.render(scene, cam, with_labels=True, device=card)
+    torch.cuda.synchronize()
+    mid = blend.split_counts(card)
+    mesh = mesh_lib.make_mesh({2: (1, 2), 4: (2, 2)}[d], [card])
+    got = render_sharded.render_sharded(
+        mesh_lib.shard_scene(scene, mesh),
+        projection.CameraParams.from_camera(cam, card), mesh,
+        width=cam.width, height=cam.height, cfg=DEFAULT, with_labels=True)
+    torch.cuda.synchronize()
+    after = blend.split_counts(card)
+    assert mid["tiles"] > before["tiles"]
+    assert after["tiles"] - mid["tiles"] == mid["tiles"] - before["tiles"]
+    for k in ("image", "transmittance", "best_weight", "label_map"):
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.gpu
+def test_blend_kernel_keeps_one_block_a_tile_under_a_gradient(card):
+    """Where the table records a gradient (B2 replays B1's walk), B1 splits
+    nothing, on the crowded frame too, and equals the one-block walk's
+    plain version bit for bit, directly and through BlendSceneTiles."""
+    ptab, b, kw = _crowded_frame(card, 32)
+    kw = dict(kw, early_eps=1e-5)
+    ref = blend._blend_tiles_fwd_plain(ptab, b.inst_gauss, b.tile_bounds,
+                                       **kw, with_labels=True)
+    leaf = ptab.clone().requires_grad_(True)
+    before = blend.split_counts(card)
+    out = blend.blend_tiles_fwd(leaf, b.inst_gauss, b.tile_bounds, **kw,
+                                with_labels=True)
+    settings = api.BlendSettings(**kw)
+    through = api.blend_scene_tiles(leaf * 1.0, b, settings, True)
+    torch.cuda.synchronize()
+    assert blend.split_counts(card) == before
+    for got in (out, through):
+        for k in blend.BlendOutput._fields:
+            assert torch.equal(getattr(got, k), getattr(ref, k)), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frame", ["random", "thin splats"])
+@pytest.mark.parametrize("tile_size", [32, 16, 24])
+def test_blend_kernel_leaves_short_tiles_whole(card, frame, tile_size):
+    """On the card frame and the thin splats (tiles of at most ~650
+    instances, under SPLIT_MIN) B1 splits nothing, so the tests that hold it
+    bit for bit to B5 and to its plain version keep their meaning."""
+    if frame == "random":
+        scene, cam, proj, tx, ty = _card_frame(card, tile_size)
+        b = tiles.bin_tiles(proj, tiles_x=tx, tiles_y=ty,
+                            tile_size=tile_size)
+        ptab, width, height = (api.pack_table(proj, scene.labels),
+                               cam.width, cam.height)
+    else:
+        tx, ty, b, ptab = _thin_stream(card, tile_size)
+        width, height = 200, 136
+    assert int((b.tile_bounds[1:] - b.tile_bounds[:-1]).max()) \
+        <= blend.SPLIT_MIN
+    before = blend.split_counts(card)
+    for eps in (0.0, 1e-5):
+        blend.blend_tiles_fwd(ptab, b.inst_gauss, b.tile_bounds,
+                              tiles_x=tx, tiles_y=ty, tile_size=tile_size,
+                              width=width, height=height, chunk=64,
+                              alpha_min=1 / 255, alpha_max=0.999,
+                              early_eps=eps, with_labels=True)
+    assert blend.split_counts(card) == before
 
 
 @pytest.mark.gpu

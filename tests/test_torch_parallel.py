@@ -65,6 +65,7 @@ from gsplat_tpu_torch.models import densify as tdz
 from gsplat_tpu_torch.models import trainer as ttrainer
 from gsplat_tpu_torch.parallel import mesh as tmesh
 from gsplat_tpu_torch.parallel import render_sharded as trs
+from gsplat_tpu_torch.render import api
 from gsplat_tpu_torch.render import tiles as ttiles
 from gsplat_tpu_torch.render.api import render
 from gsplat_tpu_torch.render.projection import CameraParams, Projected
@@ -228,6 +229,43 @@ def test_render_sharded_padded_scene_bit_equal(camera, d):
     assert int(nd) == 0
     assert torch.equal(img, render(scene, camera, DEFAULT,
                                    device=CPU)["image"])
+
+
+@pytest.mark.parametrize("exchange", ["a2a", "all_gather"])
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_render_sharded_cuts_tiles_by_the_whole_frame(camera, d, exchange,
+                                                      monkeypatch):
+    """Every shard's blend gets the length of ``render``'s stream, from
+    which B1 cuts its long tiles, so a shard cuts each tile as ``render``
+    does; the shards' own streams add up to more where the lattice pads
+    the grid (at D = 4 and 8 here) and the padded tiles take slots."""
+    scene = random_scene(250, seed=33, num_labels=4, device=CPU)
+    camp = _camp(camera)
+    want = api._project_bin_pack(scene, camp, W, H, DEFAULT)[0]
+    seen = []
+
+    def blend_scene_tiles(ptab, binning, settings, with_labels=False,
+                          frame_instances=None):
+        seen.append((binning.inst_gauss.shape[0], frame_instances))
+        return api.blend_scene_tiles(ptab, binning, settings, with_labels,
+                                     frame_instances)
+
+    monkeypatch.setattr(trs, "blend_scene_tiles", blend_scene_tiles)
+    mesh = _mesh(d)
+    got = trs.render_sharded(tmesh.shard_scene(scene, mesh), camp, mesh,
+                             width=W, height=H, cfg=DEFAULT,
+                             exchange=exchange)
+    assert torch.equal(got, render(scene, camera, DEFAULT,
+                                   device=CPU)["image"])
+    assert len(seen) == d
+    assert {f for _, f in seen} == {want.inst_gauss.shape[0]} != {0}
+    ts = DEFAULT.raster.tile_size
+    dy, dx, tx_l, ty_l = trs.grid_layout(W, H, ts, d)
+    padded = tx_l * dx > -(-W // ts) or ty_l * dy > -(-H // ts)
+    assert padded == (d == 8)
+    own = sum(n for n, _ in seen)
+    assert own > want.inst_gauss.shape[0] if padded else (
+        own == want.inst_gauss.shape[0])
 
 
 def test_measure_budgets_sharded_counts_exactly(camera):
